@@ -1,0 +1,102 @@
+"""Shared inputs for the PyTorch-port parity tests (``tests/test_torch_*.py``).
+
+The test configuration is EfficientDet-d0 at its published widths, cut to
+128x128 input, 8 classes, one BiFPN cell and one head repeat, with loss
+attenuation. Weights are numpy draws from a seed laid out as the flax
+variable tree (shapes from ``jax.eval_shape`` of the flax init, so no
+flax init runs); both packages get the same numbers, the port through
+``convert.py``. The tests here hold the port's own layout of that tree
+against flax's.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from udal_tpu import config as jax_config  # noqa: E402
+from udal_tpu.models.efficientdet import EfficientDetNet as JaxNet  # noqa: E402
+from udal_tpu_torch import config as torch_config  # noqa: E402
+from udal_tpu_torch.convert import load_flax, torch_to_flax  # noqa: E402
+from udal_tpu_torch.models.efficientdet import EfficientDetNet  # noqa: E402
+
+IMAGE = 128
+
+
+def small_overrides(mc: bool = False, samples: int = 3) -> dict:
+    return dict(image_size=f"{IMAGE}x{IMAGE}", num_classes=8, loss_attenuation=True,
+                fpn_cell_repeats=1, box_class_repeats=1, is_training_bn=False,
+                mc_dropout=mc, mc_dropoutrate=0.05 if mc else 0.0,
+                mc_dropoutsamp=samples)
+
+
+def configs(mc: bool = False, samples: int = 3):
+    """(JAX config, port config) with the same overrides."""
+    out = []
+    for api in (jax_config, torch_config):
+        cfg = api.get_detection_config("efficientdet-d0")
+        cfg.override(small_overrides(mc, samples))
+        out.append(cfg)
+    return tuple(out)
+
+
+def flax_shapes(jax_cfg):
+    model = JaxNet(jax_cfg)
+    return jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMAGE, IMAGE, 3)),
+        train=False))
+
+
+def random_variables(jax_cfg, seed: int = 0) -> dict:
+    """{'params', 'batch_stats'} as nested dicts of float32 numpy arrays,
+    drawn from ``seed``. Kernels at lecun-normal scale keep the activations
+    of the random network O(1) (He scale lets some seeds grow them to 1e3,
+    where float32 parity is a matter of conditioning, not of the port)."""
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            v = rng.normal(0.0, np.sqrt(1.0 / fan_in), shape)
+        elif name in ("scale", "var", "edge_weights"):
+            v = rng.uniform(0.5, 1.5, shape)
+        else:                                   # bias, mean
+            v = rng.normal(0.0, 0.1, shape)
+        return np.asarray(v, np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(draw, flax_shapes(jax_cfg))
+    return jax.tree_util.tree_map(np.asarray, {k: dict(v) for k, v in tree.items()})
+
+
+def torch_model(torch_cfg, variables) -> "EfficientDetNet":
+    """The port's model in f32 on the CPU with ``variables`` loaded."""
+    model = EfficientDetNet(torch_cfg)
+    load_flax(model, variables["params"], variables["batch_stats"])
+    return model.eval()
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + k + "/")
+        else:
+            yield prefix + k, tuple(v.shape)
+
+
+@pytest.mark.parametrize("mc", [False, True])
+def test_port_layout_equals_flax_tree(mc):
+    """Every flax leaf has a torch parameter or buffer of the same size, and
+    the reverse: ``torch_to_flax`` of a fresh port model reproduces the
+    flax variable tree's paths and shapes."""
+    jax_cfg, torch_cfg = configs(mc)
+    want = flax_shapes(jax_cfg)
+    params, stats = torch_to_flax(EfficientDetNet(torch_cfg))
+    assert dict(_flat(params)) == dict(_flat(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape), dict(want["params"]))))
+    assert dict(_flat(stats)) == dict(_flat(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape), dict(want["batch_stats"]))))

@@ -1,0 +1,35 @@
+"""The port's serving path loads on a machine with PyTorch and numpy only."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+PORT = pathlib.Path(__file__).resolve().parents[1] / "udal_tpu_torch"
+FORBIDDEN = ("jax", "flax", "yaml", "udal_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_serving_path_imports_no_jax_flax_yaml_or_jax_package():
+    code = ("import sys, udal_tpu_torch.apps.serving, udal_tpu_torch.ops.cuda_nms; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    assert "torch" in out and "udal_tpu_torch.ops.postprocess" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: p.name)
+def test_no_port_module_imports_jax_or_flax(path):
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert [m for m in names if _forbidden(m)] == []
