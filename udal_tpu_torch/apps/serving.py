@@ -2,9 +2,11 @@
 
 Port of the serving path of ``udal_tpu/apps/serving.py``: preprocess
 (normalise / resize) → deterministic or MC-dropout forward (the shared
-prefix + block-0 fold, then T samples as one T·B batch) → global
-uncertainty post-processing with soft-NMS, which runs as the CUDA kernel
-when the tensors live on a GPU. Eager PyTorch under ``inference_mode``.
+prefix + block-0 fold, then T samples as one T·B batch; each MBConv's
+front half one fused call) → global uncertainty post-processing with
+soft-NMS. The fused depthwise, fused expand + depthwise and soft-NMS run as
+CUDA kernels when the tensors live on a GPU. Eager PyTorch under
+``inference_mode``.
 
 Imports neither ``yaml`` nor the JAX package, so it loads on a machine that
 has only PyTorch and numpy.
@@ -46,6 +48,7 @@ class ServingDriver:
         model = EfficientDetNet(config)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=dtype).eval()
+        self.model.backbone.prepare_inference()
         generator = torch.Generator(device=self.device)
         generator.manual_seed(mc_seed)
         self.masks = ChannelDropout(generator)

@@ -9,6 +9,11 @@ Submodules carry the flax scope names (``stem_conv``, ``blocks_3``,
 ``depthwise_conv``, ``bn1`` ...), so ``convert.py`` maps a flax tree onto
 the state dict by renaming. Tensors are NCHW inside; convolutions use TF
 "SAME" padding, which is uneven at stride 2.
+
+An MBConv's front half (expand, bn0, act, mask, depthwise, bn1, act, mask
+and the SE squeeze) is one fused call: ``ops/fused_mbconv.py`` for blocks
+that expand, ``ops/fused_dw.py`` for those that do not. Each runs its CUDA
+kernel on a card and its plain PyTorch version on the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -237,15 +242,23 @@ class ChannelDropout:
         return torch.rand((n, c), generator=self.generator, device=device) < keep
 
 
+def dropout_mask(masks: Optional[ChannelDropout], n: int, c: int, rate: float,
+                 device) -> Optional[torch.Tensor]:
+    """One site's channel-dropout multiplier [n, c] in f32 (keep bits scaled
+    by 1/keep), as the fused kernels take it; None when the rate is 0 or no
+    mask source is given (deterministic inference)."""
+    if rate <= 0.0 or masks is None:
+        return None
+    keep = 1.0 - rate
+    return masks.draw(n, c, keep, device).to(torch.float32) / keep
+
+
 def spatial_dropout(x: torch.Tensor, rate: float,
                     masks: Optional[ChannelDropout]) -> torch.Tensor:
     """Channel-wise dropout of NCHW ``x``, scaled by 1/keep; identity when
     the rate is 0 or no mask source is given (deterministic inference)."""
-    if rate <= 0.0 or masks is None:
-        return x
-    keep = 1.0 - rate
-    bits = masks.draw(x.shape[0], x.shape[1], keep, x.device)
-    return x * (bits.to(x.dtype) / keep)[:, :, None, None]
+    mask = dropout_mask(masks, x.shape[0], x.shape[1], rate, x.device)
+    return x if mask is None else x * mask.to(x.dtype)[:, :, None, None]
 
 
 class SqueezeExcite(nn.Module):
@@ -255,8 +268,10 @@ class SqueezeExcite(nn.Module):
         self.reduce = Conv2d(filters, se_filters, 1)
         self.expand = Conv2d(se_filters, filters, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        se = torch.mean(x, dim=(2, 3), keepdim=True)
+    def forward(self, x: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
+        """Scale NCHW ``x`` by the excitation of ``pooled`` [N, C], its
+        spatial mean (f32, from the fused front half)."""
+        se = pooled.to(x.dtype)[:, :, None, None]
         se = self.expand(self.act(self.reduce(se)))
         return torch.sigmoid(se) * x
 
@@ -269,7 +284,7 @@ class MBConvBlock(nn.Module):
                  bn_epsilon: float = 1e-3, mc_dropoutrate: float = 0.0):
         super().__init__()
         a = block_args
-        self.act = activation_fn(act_type)
+        self.act_type = act_type
         self.mc_dropoutrate = mc_dropoutrate
         filters = in_channels
         self.expand_conv = self.bn0 = None
@@ -285,22 +300,61 @@ class MBConvBlock(nn.Module):
         self.se = None
         if use_se and a.se_ratio and 0 < a.se_ratio <= 1:
             self.se = SqueezeExcite(filters, max(1, int(a.input_filters * a.se_ratio)),
-                                    self.act)
+                                    activation_fn(act_type))
         self.project_conv = Conv2d(filters, a.output_filters, 1, bias=False)
         self.bn2 = BatchNorm(a.output_filters, bn_epsilon)
         self.residual = (a.id_skip and all(s == 1 for s in a.strides)
                          and a.input_filters == a.output_filters)
+        self.folded: Optional[Dict[str, torch.Tensor]] = None
+
+    def fold(self) -> Dict[str, torch.Tensor]:
+        """The fused call's f32 operands, inference BatchNorm folded in:
+        ``we`` [Cin, Ce] (bn0 scale), ``b0``, ``wd`` [Ce, k, k] (bn1 scale)
+        and ``b1`` for a block that expands; the raw ``taps`` [C, k, k] with
+        bn1's ``scale`` and ``bias`` for one that does not."""
+        from udal_tpu_torch.ops.fused_dw import fold_bn  # ops/fused_dw imports this module
+
+        with torch.no_grad():
+            bn1 = self.bn1
+            s1, b1 = fold_bn(bn1.weight, bn1.bias, bn1.running_mean, bn1.running_var, bn1.eps)
+            taps = self.depthwise_conv.weight[:, 0].float()
+            if self.expand_conv is None:
+                return dict(taps=taps.contiguous(), scale=s1, bias=b1)
+            bn0 = self.bn0
+            s0, b0 = fold_bn(bn0.weight, bn0.bias, bn0.running_mean, bn0.running_var, bn0.eps)
+            we = self.expand_conv.weight[:, :, 0, 0].float() * s0[:, None]
+            return dict(we=we.t().contiguous(), b0=b0,
+                        wd=(taps * s1[:, None, None]).contiguous(), b1=b1)
+
+    def prepare_inference(self) -> None:
+        """Fold once, after the weights are loaded and the module is on its
+        device; a later ``load_state_dict`` or ``to`` calls for a new fold."""
+        self.folded = self.fold()
 
     def forward(self, x: torch.Tensor,
                 masks: Optional[ChannelDropout] = None) -> torch.Tensor:
+        from udal_tpu_torch.ops.fused_dw import fused_depthwise  # (import cycle, see fold)
+        from udal_tpu_torch.ops.fused_mbconv import fused_expand_dw
+
         inputs = x
+        x = x.contiguous()
+        f = self.folded if self.folded is not None else self.fold()
+        n, c = x.shape[0], self.bn1.weight.shape[0]
+        k, s = self.depthwise_conv.kernel_size[0], self.depthwise_conv.stride[0]
+        rate = self.mc_dropoutrate
         if self.expand_conv is not None:
-            x = self.act(self.bn0(self.expand_conv(x)))
-            x = spatial_dropout(x, self.mc_dropoutrate, masks)
-        x = self.act(self.bn1(self.depthwise_conv(x)))
-        x = spatial_dropout(x, self.mc_dropoutrate, masks)
+            # the expand site draws, then the depthwise site, as in the unfused order
+            m1 = dropout_mask(masks, n, c, rate, x.device)
+            m2 = dropout_mask(masks, n, c, rate, x.device)
+            x, se_sum = fused_expand_dw(x, f["we"], f["b0"], m1, f["wd"], f["b1"], m2,
+                                        s, k, self.act_type)
+            pooled = se_sum / (x.shape[-2] * x.shape[-1])
+        else:
+            m2 = dropout_mask(masks, n, c, rate, x.device)
+            x, pooled = fused_depthwise(x, f["taps"], f["scale"], f["bias"], m2, s,
+                                        self.act_type, want_mean=True)
         if self.se is not None:
-            x = self.se(x)
+            x = self.se(x, pooled)
         x = self.bn2(self.project_conv(x))
         if self.residual:
             x = x + inputs
@@ -330,6 +384,11 @@ class EfficientNet(nn.Module):
             channels = a.output_filters
             if self.is_reduction[idx]:
                 self.reduction_channels.append(channels)
+
+    def prepare_inference(self) -> None:
+        """Fold every block's BatchNorms into its fused call's operands."""
+        for idx in range(len(self.block_args)):
+            getattr(self, f"blocks_{idx}").prepare_inference()
 
     def forward(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                 start_block: int = 0) -> List[Optional[torch.Tensor]]:

@@ -23,6 +23,7 @@ import torch
 
 from udal_tpu_torch.models.efficientdet import EfficientDetNet, Outputs
 from udal_tpu_torch.models.efficientnet import ChannelDropout, activation_fn
+from udal_tpu_torch.ops.fused_dw import fold_bn, fused_depthwise
 
 
 def fast_mc_eligible(cfg, model: EfficientDetNet) -> bool:
@@ -42,8 +43,7 @@ def fast_mc_eligible(cfg, model: EfficientDetNet) -> bool:
 
 def _bn_affine(bn, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inference BatchNorm as (scale, bias), computed in f32, cast to dtype."""
-    scale = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
-    bias = bn.bias.float() - bn.running_mean.float() * scale
+    scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
     return scale.to(dtype), bias.to(dtype)
 
 
@@ -52,8 +52,9 @@ def mc_shared_prefix(model: EfficientDetNet, images: torch.Tensor
     """Stem conv/bn/act + block-0 depthwise/bn/act, once at batch B.
 
     NHWC images → (x0 [B, C0, H, W] NCHW in the model's dtype, x0_mean
-    [B, C0] in f32). Written out with explicit BN affines, in the JAX
-    package's op order.
+    [B, C0] in f32). The stem is written out with an explicit BN affine, in
+    the JAX package's op order; block 0's depthwise, bn1, swish and mean are
+    one ``fused_depthwise`` call.
     """
     bb = model.backbone
     dtype = bb.stem_conv.weight.dtype
@@ -62,9 +63,9 @@ def mc_shared_prefix(model: EfficientDetNet, images: torch.Tensor
     scale, bias = _bn_affine(bb.stem_bn, dtype)
     x = act(bb.stem_conv(x) * scale[:, None, None] + bias[:, None, None])
     b0 = bb.blocks_0
-    scale, bias = _bn_affine(b0.bn1, dtype)
-    x0 = act(b0.depthwise_conv(x) * scale[:, None, None] + bias[:, None, None])
-    return x0, torch.mean(x0.to(torch.float32), dim=(2, 3))
+    f = b0.folded if b0.folded is not None else b0.fold()
+    return fused_depthwise(x.contiguous(), f["taps"], f["scale"], f["bias"], None,
+                           b0.depthwise_conv.stride[0], "swish", want_mean=True)
 
 
 def folded_block0_all_samples(model: EfficientDetNet, x0: torch.Tensor,

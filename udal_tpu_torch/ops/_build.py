@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/udal_tpu_torch/`` at the
 repository root, then loaded with ``ctypes``. The library's file name carries
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing here runs at import time.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source is rebuilt and an unchanged one is reused. ``build`` starts
+one ``nvcc`` per missing library, all at once. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -17,11 +19,15 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "udal_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# soft-NMS keeps `area + barea - inter` uncontracted, so its picks equal the
+# plain version's index for index
+EXTRA_FLAGS = {"soft_nms": ("--fmad=false",)}
 
 
 def find_nvcc() -> str:
@@ -38,35 +44,59 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed by a hash of source + flags."""
+    """Where ``csrc/<name>.cu`` is built, keyed by a hash of source, headers
+    and flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it.
+def build(names: Iterable[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one
+    ``nvcc`` each, all started together.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``.log``. Raises RuntimeError when nvcc is
-    missing or the build fails.
+    is kept beside each library as ``.log``. Raises RuntimeError when nvcc
+    is missing or a build fails.
     """
-    out = library_path(name)
-    if not out.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        proc = subprocess.Popen([nvcc, *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, tmp, proc))
+    failed = []
+    for name, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
         try:
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                                  capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{proc.stderr}")
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+                failed.append(f"nvcc failed on csrc/{name}.cu:\n{stderr}")
+                continue
+            out = library_path(name)
+            out.with_suffix(".log").write_text(stdout + stderr)
             os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return ctypes.CDLL(str(out))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))
