@@ -8,8 +8,11 @@ exit code:
 1. device: a CUDA card is required; prints its name and power limit
    (nvidia-smi), the torch and CUDA versions; turns TF32 off.
 2. build: compiles ``udal_tpu_torch/csrc/{soft_nms,fused_dw,
-   fused_expand_dw}.cu`` with nvcc (sm_90a), one process each, all at once;
-   prints each kernel's registers, shared memory and spills.
+   fused_expand_dw,packed_pointwise,packed_lane}.cu`` with nvcc (sm_90a),
+   one process each, all at once; prints each kernel's registers, shared
+   memory and spills, and the count of tensor-core instructions (HMMA,
+   HGMMA) in packed_pointwise's library (cuobjdump -sass), which must not
+   be 0.
 3. kernels vs plain, on the card:
    - soft-NMS at the main path's shapes (B=8, N=5000, K=100), gaussian and
      hard, random and tied scores: equal valid_len, equal indices over it,
@@ -43,6 +46,14 @@ exit code:
    the MC path without the fold (block 0 masked at T*B) and the
    deterministic path; detections agree as matched sets, and the kernels
    ran on the card only.
+6. the packed-layout microbench (``udal_tpu_torch.tools.perf_packed``, the
+   port of ``tools/perf_packed.py``): ``check`` at the tool's shapes (the
+   script's references; each of the five kernels against its plain
+   version: B4 within 1 bf16 ulp plus 1% of the largest value's, B5-B7
+   exact, B8 within 1 ulp), then every timed case, asserting each kernel's
+   launch count. The packed rows of the summary give the medians of the
+   tool's CUDA-graph replays (device time: B6 and B7 run for less time than
+   their wrappers take on the host).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -54,6 +65,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,13 +76,25 @@ from udal_tpu_torch.convert import flax_to_torch, torch_to_flax
 from udal_tpu_torch.models.efficientdet import EfficientDetNet
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
                                                 activation_fn)
-from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms
+from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms, packed
+from udal_tpu_torch.tools import perf_packed
 
 MAIN_PATH = dict(image_size="1024x512", num_classes=8, loss_attenuation=True,
                  mc_dropout=True, mc_dropoutrate=0.05, mc_dropoutsamp=10)
 BATCH, N_CAND, K = 8, 5000, 100
 SERVE_CALLS = 4
-SOURCES = ("soft_nms", "fused_dw", "fused_expand_dw")
+SOURCES = ("soft_nms", "fused_dw", "fused_expand_dw", "packed_pointwise", "packed_lane")
+# the packed probes: (kernel, source, TPU kernel, the tool's kernel and plain cases)
+PACKED_ROWS = (
+    ("packed_pointwise", "packed_pointwise", "tools/perf_packed.py:80",
+     "packed_pw_128x256x24to144", "plain_pw_128x256x24to144"),
+    ("packed_wshift", "packed_lane", "tools/perf_packed.py:147",
+     "packed_wshift_128x32x1152", "plain_packed_wshift_128x32x1152"),
+    ("add_one_natural", "packed_lane", "tools/perf_packed.py:236", "p1_reshape_roundtrip",
+     "p1_plain"),
+    ("add_one_packed", "packed_lane", "tools/perf_packed.py:264", "p1_copy_baseline", "p1_plain"),
+    ("packed_dw_w3", "packed_lane", "tools/perf_packed.py:296", "p2_packed_dwW_128x32x1152",
+     "plain_p2_packed_dwW_128x32x1152"))
 # the fused kernels at the main path's shapes: (what, N, Cin, Ce, H, W, k, s)
 PREFIX = ("MC prefix (block 0)", BATCH, 32, 32, 256, 512, 3, 1)
 BLOCKS = (("block 1", 80, 16, 96, 256, 512, 3, 2),
@@ -118,15 +142,24 @@ def ptxas_summary(name):
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             base = re.search(r"(soft_nms_kernel|fused_dw_kernel|fused_expand_dw_kernel|"
-                             r"sum_partials)(I.*?EE)?", m.group(1))
+                             r"sum_partials|packed_pointwise_kernel|wshift_kernel|"
+                             r"add_one_kernel|dw_w3_kernel)(I.*?EE)?", m.group(1))
             args = base.group(2) or ""
             kind = "bf16" if "bfloat16" in args else ("f32" if args.startswith("If") else "")
             entry = base.group(1) + "<" + ",".join(
-                [kind] * bool(kind) + re.findall(r"Li(\d+)E", args)) + ">"
+                [kind] * bool(kind) + re.findall(r"L[ib](\d+)E", args)) + ">"
         elif "spill" in line:
             spills = line.split(":")[-1].strip()
         elif "registers" in line:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+
+
+def tensor_core_instructions(name):
+    """Count of HMMA and HGMMA instructions in csrc/<name>.cu's library."""
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return len(re.findall(r"\bHG?MMA\.", sass))
 
 
 def bf16_excess(got, want, ulps, top_ulps):
@@ -267,6 +300,7 @@ def eager_modules(o, expand, cin, ce, k, s, dev):
 
 def reset_counts():
     cuda_nms.launches = fused_dw.launches = fused_mbconv.launches = 0
+    packed.launches.update(dict.fromkeys(packed.launches, 0))
 
 
 def counts():
@@ -369,6 +403,10 @@ def main():
              f"(one nvcc each, in parallel)")
     for name in SOURCES:
         ptxas_summary(name)
+    mma = tensor_core_instructions("packed_pointwise")
+    phase(2, f"packed_pointwise: {mma} tensor-core instructions (HMMA/HGMMA) in its SASS")
+    if mma == 0:
+        raise AssertionError("packed_pointwise's library holds no tensor-core instruction")
 
     # -- 3. kernels vs plain ---------------------------------------------------
     rng = np.random.RandomState(0)
@@ -465,6 +503,27 @@ def main():
                  f"detections agree as matched sets, valid_len {outs[0][3].tolist()}, max "
                  f"score diff {worst:.2e}")
 
+    # -- 6. the packed-layout microbench ---------------------------------------
+    t0 = time.perf_counter()
+    packed_err = perf_packed.main(["check"])
+    phase(6, f"perf_packed check: the script's references and every kernel against its "
+             f"plain version at the tool's shapes passed, max abs err {packed_err} "
+             f"({time.perf_counter() - t0:.1f} s)")
+    reset_counts()
+    bench = {r["case"]: r["graph_ms"] for r in perf_packed.main(list(perf_packed.CASES))}
+    calls = perf_packed.WARMUP + perf_packed.RUNS + 1
+    want = {name: calls for name in packed.launches}
+    want["packed_pointwise"] = calls * (1 + len(perf_packed.M_TILES))
+    if packed.launches != want:
+        raise AssertionError(f"packed launches {packed.launches} in the timed cases; want {want}")
+    sweep = ", ".join(f"m_tile {mt} {bench[f'packed_pw_mt{mt}']:.4f}" for mt in perf_packed.M_TILES)
+    phase(6, f"perf_packed timed cases, launches {packed.launches}; packed_pointwise "
+             f"{bench['packed_pw_128x256x24to144']:.4f} ms, plain "
+             f"{bench['plain_pw_128x256x24to144']:.4f} ms, cuDNN 1x1 conv "
+             f"{bench['conv_pw_128x256x24to144']:.4f} ms, cuBLAS bf16 matmul "
+             f"{bench['packed_pw_torch_matmul_bf16out']:.4f} ms; {sweep} (medians of "
+             f"{perf_packed.RUNS} CUDA-graph replays); {smi}")
+
     kernel_ms, plain_ms = times["gaussian"]
     rows = [{"name": "soft_nms", "route": "cuda", "source": "udal_tpu_torch/csrc/soft_nms.cu",
              "replaces": "udal_tpu/ops/pallas_nms.py:36", "launches": launches[2],
@@ -476,6 +535,11 @@ def main():
                      "replaces": replaces, "launches": launches[i],
                      "max_abs_err": max(bf16_err[name], f32_err[name]), "ms": k_ms,
                      "plain_ms": p_ms})
+    for name, source, replaces, case, plain_case in PACKED_ROWS:
+        rows.append({"name": name, "route": "cuda", "source": f"udal_tpu_torch/csrc/{source}.cu",
+                     "replaces": replaces, "launches": packed.launches[name],
+                     "max_abs_err": packed_err[name], "ms": bench[case],
+                     "plain_ms": bench[plain_case]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

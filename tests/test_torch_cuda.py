@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from udal_tpu_torch.ops import cuda_nms, fused_dw, fused_mbconv, nms  # noqa: E402
+from udal_tpu_torch.ops import cuda_nms, fused_dw, fused_mbconv, nms, packed  # noqa: E402
 
 
 def random_batch(seed, n, b=2, tied=False, size=256):
@@ -210,3 +210,97 @@ def test_fused_kernels_raise_on_what_they_do_not_take(cuda):
         fused_mbconv.fused_expand_dw(x, we.bfloat16(), b0, m1, wd, b1, m2, 1, 3)
     with pytest.raises(ValueError, match="stride"):
         fused_mbconv.fused_expand_dw(x, we, b0, m1, wd, b1, m2, 3, 3)
+
+
+def bf16_normal(seed, shape, dev, scale=1.0):
+    x = np.random.RandomState(seed).normal(0, scale, shape).astype(np.float32)
+    return torch.from_numpy(x).to(dev).bfloat16()
+
+
+def launched(name, fn):
+    """fn's result, after checking that it launched ``name``'s kernel once."""
+    before = packed.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert packed.launches[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,m_tile", [(96, 40, 200, 32), (90, 27, 13, 45),
+                                          (130, 192, 1152, 65), (327680, 192, 1152, 512)])
+def test_packed_pointwise_kernel_matches_plain(cuda, m, k, n, m_tile):
+    """Tensor-core products summed in another order than the plain f32
+    product, rounded once: within 1 bf16 ulp plus 1% of an ulp of the
+    largest value (near zero the sum cancels). Odd K and N (zero-padded
+    fragments, the scalar path), row passes cut short by m_tile, and the
+    tool's shape."""
+    xp, w = bf16_normal(5, (m, k), cuda), bf16_normal(6, (k, n), cuda, 0.1)
+    got = launched("packed_pointwise", lambda: packed.packed_pointwise(xp, w, m_tile))
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert_bf16_close(got, packed.packed_pointwise_plain(xp, w, m_tile), 1, 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cexp", [((2, 8, 3, 15), 5), ((2, 16, 4, 128), 16),
+                                        ((80, 128, 32, 1152), 144)])
+@pytest.mark.parametrize("direction", [1, -1])
+def test_packed_wshift_kernel_matches_plain(cuda, shape, cexp, direction):
+    """Exact: C = 5 (scalar path), C = 16 and the tool's C = 144 (16-byte
+    vectors)."""
+    x = bf16_normal(7, shape, cuda)
+    g = shape[-1] // cexp
+    got = launched("packed_wshift", lambda: packed.packed_wshift(x, cexp, g, direction))
+    assert torch.equal(got, packed.packed_wshift_plain(x, cexp, g, direction))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,cin,tile", [(21, 15, 5, 7), (24, 40, 5, 8),
+                                                (1000, 24, 3, 8), (40960, 192, 24, 512)])
+@pytest.mark.parametrize("name", ["add_one_natural", "add_one_packed"])
+def test_add_one_kernels_match_plain(cuda, rows, cols, cin, tile, name):
+    """Exact: 315 values (scalar path), one and several 8192-value blocks
+    with a ragged last one, and the tool's [40960, 192]."""
+    x = bf16_normal(8, (rows, cols), cuda, 4.0)
+    got = launched(name, lambda: getattr(packed, name)(x, cin, tile))
+    assert torch.equal(got, packed.add_one_plain(x, cin, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cexp", [((2, 8, 3, 15), 5), ((2, 8, 5, 128), 16),
+                                        ((8, 128, 32, 1152), 144)])
+def test_packed_dw_w3_kernel_matches_plain(cuda, shape, cexp):
+    """The plain version's products and sums in its order, uncontracted,
+    rounded once: within 1 bf16 ulp (the kernel is built to be exact)."""
+    x = bf16_normal(9, shape, cuda)
+    taps = bf16_normal(10, (3, shape[-1]), cuda, 0.5)
+    got = launched("packed_dw_w3", lambda: packed.packed_dw_w3(x, taps, cexp))
+    assert_bf16_close(got, packed.packed_dw_w3_plain(x, taps, cexp), 1, 0)
+
+
+@pytest.mark.cuda
+def test_packed_kernels_take_misaligned_views(cuda):
+    """A contiguous view 2 bytes past an aligned address takes the scalar
+    path and gives the same values."""
+    base = bf16_normal(11, (8 * 16 * 2 * 16 + 1,), cuda)
+    x = base[1:].view(1 * 8 * 16, 2 * 16)
+    assert x.data_ptr() % 16 != 0
+    got = launched("add_one_packed", lambda: packed.add_one_packed(x, 16, 8))
+    assert torch.equal(got, packed.add_one_plain(x, 16, 8))
+    x4 = base[1:1 + 8 * 2 * 16].view(1, 8, 2, 16)
+    got = launched("packed_wshift", lambda: packed.packed_wshift(x4, 8, 2, 1))
+    assert torch.equal(got, packed.packed_wshift_plain(x4, 8, 2, 1))
+
+
+@pytest.mark.cuda
+def test_packed_kernels_raise_on_what_they_do_not_take(cuda):
+    """No fallback: a CUDA tensor the kernels do not take raises."""
+    with pytest.raises(TypeError, match="bfloat16"):
+        packed.packed_pointwise(torch.zeros(16, 8, device=cuda), torch.zeros(8, 8, device=cuda), 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        packed.packed_wshift(torch.zeros(1, 8, 2, 16, device=cuda), 8, 2, 1)
+    with pytest.raises(ValueError, match="K <="):
+        packed.packed_pointwise(bf16_normal(0, (16, 520), cuda), bf16_normal(0, (520, 8), cuda),
+                                16)
+    with pytest.raises(ValueError, match="C4"):
+        packed.packed_pointwise(bf16_normal(0, (100, 8), cuda), bf16_normal(0, (8, 8), cuda), 64)

@@ -26,6 +26,16 @@ def test_serving_path_imports_no_jax_flax_yaml_or_jax_package():
     assert [m for m in out if _forbidden(m)] == []
 
 
+def test_packed_microbench_imports_no_jax_or_the_jax_script():
+    """The port's packed-layout tool runs on the machine with the card."""
+    code = ("import sys, udal_tpu_torch.tools.perf_packed, udal_tpu_torch.ops.packed; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    assert "torch" in out and "udal_tpu_torch.ops.packed" in out
+    assert [m for m in out if _forbidden(m) or m in ("perf_packed", "tools.perf_packed")] == []
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: p.name)
 def test_no_port_module_imports_jax_or_flax(path):
     tree = ast.parse(path.read_text())
