@@ -9,10 +9,10 @@ exit code:
    (nvidia-smi), the torch and CUDA versions; turns TF32 off.
 2. build: compiles ``udal_tpu_torch/csrc/{soft_nms,fused_dw,
    fused_expand_dw,packed_pointwise,packed_lane}.cu`` with nvcc (sm_90a),
-   one process each, all at once; prints each kernel's registers, shared
-   memory and spills, and the count of tensor-core instructions (HMMA,
-   HGMMA) in packed_pointwise's library (cuobjdump -sass), which must not
-   be 0.
+   one process each, all at once; prints each kernel instance's registers,
+   shared memory and spills, and the count of tensor-core instructions
+   (HMMA, HGMMA) in the libraries of packed_pointwise and fused_expand_dw
+   (cuobjdump -sass), which must not be 0.
 3. kernels vs plain, on the card:
    - soft-NMS at the main path's shapes (B=8, N=5000, K=100), gaussian and
      hard, random and tied scores: equal valid_len, equal indices over it,
@@ -32,7 +32,8 @@ exit code:
      (expand: an expanded value can round the other way), SE sums and
      means to 1e-3 of their largest value.
    Median times of kernel, plain version and the unfused bf16 eager chain
-   (the unfused block code), from CUDA events.
+   (the unfused block code), from CUDA events; then the bf16 expand
+   kernel's time at each of d0's 15 expand blocks at T*B=80 and their sum.
 4. the slice at full width: MC-dropout EfficientDet-d0 (1024x512, 8
    classes, loss attenuation, T=10 at rate 0.05, batch 8, bf16, random
    weights from a seed) serves uint8 batches; checks the packed shapes,
@@ -53,10 +54,17 @@ exit code:
    exact, B8 within 1 ulp), then every timed case, asserting each kernel's
    launch count. The packed rows of the summary give the medians of the
    tool's CUDA-graph replays (device time: B6 and B7 run for less time than
-   their wrappers take on the host).
+   their wrappers take on the host). Then B6, B7 and ``x + 1`` in 5 rounds
+   of 20 graph replays each, in turns: the median and spread of each.
 
-The line before the last is a JSON summary of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON summary of the kernels: each with its
+launches on the main path (phase 4, or phase 6's timed cases for the
+probes), largest error, time, plain time, its bound (the largest of the
+bytes it must move at 3.35 TB/s, its bf16 operations on tensor cores at
+989 TFLOP/s and its f32 operations at 67 TFLOP/s, the H100 SXM data
+sheet's rates), and the time of one PyTorch call that computes the same
+function where there is one. The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 import json
@@ -75,7 +83,8 @@ from udal_tpu_torch.config import get_detection_config
 from udal_tpu_torch.convert import flax_to_torch, torch_to_flax
 from udal_tpu_torch.models.efficientdet import EfficientDetNet
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
-                                                activation_fn)
+                                                activation_fn, backbone_spec,
+                                                block_input_sizes)
 from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms, packed
 from udal_tpu_torch.tools import perf_packed
 
@@ -103,6 +112,33 @@ BLOCKS = (("block 1", 80, 16, 96, 256, 512, 3, 2),
 # f32 checks at N=8 over every (k, s): shapes of d0's blocks at 1024x512
 F32_BLOCKS = {(3, 2): (16, 96, 256, 512), (3, 1): (24, 144, 128, 256),
               (5, 2): (24, 144, 128, 256), (5, 1): (192, 1152, 16, 32)}
+# d0's expand blocks 1-15 at the main path's shapes: (index, Cin, Ce, H, W, k, s)
+EXPAND_BLOCKS = [(i, a.input_filters, a.input_filters * a.expand_ratio, h, w, a.kernel_size,
+                  a.strides[0])
+                 for i, (a, h, w) in enumerate(block_input_sizes(backbone_spec("efficientnet-b0"),
+                                                                 256, 512)) if i > 0]
+# the card's data-sheet rates (H100 SXM, 700 W): bytes/s, bf16 tensor-core
+# and f32 FLOP/s
+HBM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
+    """(ms, "bytes" or "operations"): the largest of the bytes over the
+    memory rate and the operations of each type over that type's peak rate
+    (tensor cores and CUDA cores run side by side)."""
+    t_bytes = nbytes / HBM_RATE * 1e3
+    t_ops = max(bf16_flops / BF16_RATE, f32_flops / F32_RATE) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def expand_bound(n, cin, ce, h, w, k, s, itemsize=2):
+    """The fused expand + depthwise's bound: x in and y out once (masks,
+    parameters and SE sums are small), the expand on tensor cores, the
+    depthwise and the per-value bias, swish and mask in f32."""
+    ho, wo = -(-h // s), -(-w // s)
+    nbytes = (n * cin * h * w + n * ce * ho * wo) * itemsize + n * ce * 4
+    return bound(nbytes, 2.0 * n * h * w * cin * ce,
+                 n * ce * (h * w * 4.0 + ho * wo * (2 * k * k + 4)))
 
 
 def phase(n, msg):
@@ -142,10 +178,13 @@ def ptxas_summary(name):
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             base = re.search(r"(soft_nms_kernel|fused_dw_kernel|fused_expand_dw_kernel|"
-                             r"sum_partials|packed_pointwise_kernel|wshift_kernel|"
-                             r"add_one_kernel|dw_w3_kernel)(I.*?EE)?", m.group(1))
+                             r"expand_dw_tc_kernel|sum_partials|packed_pointwise_gmma_kernel|"
+                             r"packed_pointwise_kernel|"
+                             r"wshift_kernel|add_one_kernel|dw_w3_kernel)(I.*?EE)?", m.group(1))
             args = base.group(2) or ""
-            kind = "bf16" if "bfloat16" in args else ("f32" if args.startswith("If") else "")
+            kind = ("bf16" if "bfloat16" in args or base.group(1) == "expand_dw_tc_kernel"
+                    else ("f32" if args.startswith("If")
+                          or base.group(1) == "fused_expand_dw_kernel" else ""))
             entry = base.group(1) + "<" + ",".join(
                 [kind] * bool(kind) + re.findall(r"L[ib](\d+)E", args)) + ">"
         elif "spill" in line:
@@ -160,6 +199,26 @@ def tensor_core_instructions(name):
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
     return len(re.findall(r"\bHG?MMA\.", sass))
+
+
+def time_expand_blocks(dev, rng, smi):
+    """Phase 3: the bf16 expand kernel at each of d0's 15 expand blocks at
+    T*B = 80. Returns {block: ms}."""
+    times = {}
+    for i, cin, ce, h, w, k, s in EXPAND_BLOCKS:
+        o = fused_operands(rng, 80, cin, ce, h, w, k, dev, torch.bfloat16)
+        args = (o["x"], o["we"], o["b0"], o["m1"], o["wd"], o["b1"], o["m2"], s, k, "swish",
+                fused_mbconv.split_weights(o["we"]))
+        times[i] = cuda_median_ms(lambda: fused_mbconv.fused_expand_dw_cuda(*args), runs=15,
+                                  warmup=3)
+        th, tw = fused_mbconv.tc_tile_shape(-(-h // s), -(-w // s), cin, s, k)
+        b_ms, b_by = expand_bound(80, cin, ce, h, w, k, s)
+        phase(3, f"fused_expand_dw bf16 block {i}: 80x{cin}->{ce} {h}x{w} k{k} s{s}, tile "
+                 f"{th}x{tw}: {times[i]:.4f} ms; bound {b_ms:.4f} ms ({b_by}); {smi}")
+        del o, args
+    phase(3, f"fused_expand_dw bf16 over the 15 blocks: {sum(times.values()):.4f} ms "
+             f"(kernel medians, one call each); {smi}")
+    return times
 
 
 def bf16_excess(got, want, ulps, top_ulps):
@@ -249,8 +308,9 @@ def check_fused_bf16(dev, rng, smi):
         expand = what != PREFIX[0]
         o = fused_operands(rng, n, cin, ce, h, w, k, dev, torch.bfloat16, masked=expand)
         if expand:
-            args = (o["x"], o["we"], o["b0"], o["m1"], o["wd"], o["b1"], o["m2"], s, k)
-            kernel = lambda: fused_mbconv.fused_expand_dw_cuda(*args)  # noqa: E731
+            args = (o["x"], o["we"], o["b0"], o["m1"], o["wd"], o["b1"], o["m2"], s, k, "swish")
+            split = fused_mbconv.split_weights(o["we"])
+            kernel = lambda: fused_mbconv.fused_expand_dw_cuda(*args, split)  # noqa: E731
             plain = lambda: fused_mbconv.fused_expand_dw_plain(*args)  # noqa: E731
             ulps, top_ulps, name = 2, 1, "fused_expand_dw"
         else:
@@ -266,6 +326,7 @@ def check_fused_bf16(dev, rng, smi):
                                  f"by {excess}")
         torch.testing.assert_close(got[1], want[1], rtol=1e-3,
                                    atol=1e-3 * float(want[1].abs().max()))
+        se_err = float((got[1] - want[1]).abs().max() / want[1].abs().max())
         block = eager_modules(o, expand, cin, ce, k, s, dev)
         t_kernel = cuda_median_ms(kernel, runs=15, warmup=3)
         t_plain = cuda_median_ms(plain, runs=15, warmup=3)
@@ -273,7 +334,8 @@ def check_fused_bf16(dev, rng, smi):
                                  runs=15, warmup=3)
         err = float((got[0].float() - want[0].float()).abs().max())
         phase(3, f"{name} bf16 {what}: N={n} {cin}->{ce} {h}x{w} k{k} s{s}: max err "
-                 f"{err:.3g} ({in_top:.2f} ulp of max|y|); kernel {t_kernel:.4f} ms, plain "
+                 f"{err:.3g} ({in_top:.2f} ulp of max|y|), SE {se_err:.3g} of the largest "
+                 f"(limit 1e-3); kernel {t_kernel:.4f} ms, plain "
                  f"(f32 inside) {t_plain:.4f} ms, unfused bf16 eager chain {t_eager:.4f} ms "
                  f"(medians of 15); {smi}")
         errs[name] = max(errs.get(name, 0.0), err)
@@ -403,14 +465,15 @@ def main():
              f"(one nvcc each, in parallel)")
     for name in SOURCES:
         ptxas_summary(name)
-    mma = tensor_core_instructions("packed_pointwise")
-    phase(2, f"packed_pointwise: {mma} tensor-core instructions (HMMA/HGMMA) in its SASS")
-    if mma == 0:
-        raise AssertionError("packed_pointwise's library holds no tensor-core instruction")
+    for name in ("packed_pointwise", "fused_expand_dw"):
+        mma = tensor_core_instructions(name)
+        phase(2, f"{name}: {mma} tensor-core instructions (HMMA/HGMMA) in its SASS")
+        if mma == 0:
+            raise AssertionError(f"{name}'s library holds no tensor-core instruction")
 
     # -- 3. kernels vs plain ---------------------------------------------------
     rng = np.random.RandomState(0)
-    max_err, times = 0.0, {}
+    max_err, times, picks = 0.0, {}, {}
     for sigma, tied in ((0.5, False), (0.0, False), (0.5, True)):
         boxes, scores = random_boxes(rng, BATCH, N_CAND, tied)
         b = torch.from_numpy(boxes).to(dev)
@@ -430,6 +493,7 @@ def main():
             raise AssertionError(f"kernel scores differ from the plain version by {max_err}")
         mode = ("gaussian" if sigma > 0 else "hard") + (" tied" if tied else "")
         if not tied:
+            picks[mode] = sum(vlen.tolist())
             times[mode] = (cuda_median_ms(lambda: cuda_nms.soft_nms_cuda(b, s, K, 0.5, thr, sigma)),
                            cuda_median_ms(lambda: nms.batched_soft_nms(b, s, K, 0.5, thr, sigma)))
             extra = f"kernel {times[mode][0]:.4f} ms, plain {times[mode][1]:.4f} ms (median of 25)"
@@ -439,6 +503,8 @@ def main():
                  f"{vlen.tolist()} equal, indices equal; {extra}; {smi}")
     f32_err = check_fused_f32(dev, rng)
     bf16_err, fused_times = check_fused_bf16(dev, rng, smi)
+    torch.cuda.empty_cache()
+    time_expand_blocks(dev, rng, smi)
     torch.cuda.empty_cache()
 
     # -- 4. the slice at full width -------------------------------------------
@@ -516,15 +582,44 @@ def main():
     want["packed_pointwise"] = calls * (1 + len(perf_packed.M_TILES))
     if packed.launches != want:
         raise AssertionError(f"packed launches {packed.launches} in the timed cases; want {want}")
+    packed_launches = dict(packed.launches)
     sweep = ", ".join(f"m_tile {mt} {bench[f'packed_pw_mt{mt}']:.4f}" for mt in perf_packed.M_TILES)
     phase(6, f"perf_packed timed cases, launches {packed.launches}; packed_pointwise "
              f"{bench['packed_pw_128x256x24to144']:.4f} ms, plain "
              f"{bench['plain_pw_128x256x24to144']:.4f} ms, cuDNN 1x1 conv "
-             f"{bench['conv_pw_128x256x24to144']:.4f} ms, cuBLAS bf16 matmul "
-             f"{bench['packed_pw_torch_matmul_bf16out']:.4f} ms; {sweep} (medians of "
+             f"{bench['conv_pw_128x256x24to144']:.4f} ms, cuBLAS bf16 matmul on the same "
+             f"operands {bench['matmul_pw_128x256x24to144']:.4f} ms (a2's "
+             f"{bench['packed_pw_torch_matmul_bf16out']:.4f}); {sweep} (medians of "
              f"{perf_packed.RUNS} CUDA-graph replays); {smi}")
+    rounds = perf_packed.p1_rounds(dev)
+    p1 = {case: statistics.median(ms) for case, ms in rounds.items()}
+    phase(6, "p1 in " + str(perf_packed.P1_ROUNDS) + " rounds of " + str(perf_packed.RUNS)
+          + " graph replays, median of the round medians [min, max]: " + ", ".join(
+              f"{case} {p1[case]:.4f} [{min(ms):.4f}, {max(ms):.4f}]"
+              for case, ms in rounds.items()) + f"; {smi}")
 
     kernel_ms, plain_ms = times["gaussian"]
+    # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per
+    # candidate per pick made (IoU, the decay, the argmax)
+    nms_bound = bound(BATCH * N_CAND * 20 + BATCH * K * 8 + BATCH * 4,
+                      f32_flops=20.0 * picks["gaussian"] * N_CAND)
+    bounds = {"soft_nms": nms_bound,
+              "fused_dw": bound(2 * 2 * PREFIX[1] * PREFIX[2] * PREFIX[4] * PREFIX[5],
+                                f32_flops=(2 * 9 + 4.0) * PREFIX[1] * PREFIX[2] * PREFIX[4]
+                                * PREFIX[5]),
+              "fused_expand_dw": expand_bound(*BLOCKS[0][1:])}
+    pw_m, pw_k, pw_n = perf_packed.N * perf_packed.H * perf_packed.W // perf_packed.G, \
+        perf_packed.G * perf_packed.CI, perf_packed.G * perf_packed.CE
+    wide = perf_packed.N * perf_packed.H * perf_packed.W * perf_packed.CE * 2
+    p1_bytes = 4096 * perf_packed.N // 8 * perf_packed.G * perf_packed.CI * 2
+    bounds.update({"packed_pointwise": bound((pw_m * pw_k + pw_k * pw_n + pw_m * pw_n) * 2,
+                                             2.0 * pw_m * pw_k * pw_n),
+                   "packed_wshift": bound(2 * wide),
+                   "add_one_natural": bound(2 * p1_bytes, f32_flops=p1_bytes / 2),
+                   "add_one_packed": bound(2 * p1_bytes, f32_flops=p1_bytes / 2),
+                   "packed_dw_w3": bound(2 * wide + 3 * pw_n * 2, f32_flops=5.0 * wide / 2)})
+    library = {"packed_pointwise": bench["matmul_pw_128x256x24to144"],
+               "add_one_natural": bench["p1_plain"], "add_one_packed": bench["p1_plain"]}
     rows = [{"name": "soft_nms", "route": "cuda", "source": "udal_tpu_torch/csrc/soft_nms.cu",
              "replaces": "udal_tpu/ops/pallas_nms.py:36", "launches": launches[2],
              "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}]
@@ -537,9 +632,12 @@ def main():
                      "plain_ms": p_ms})
     for name, source, replaces, case, plain_case in PACKED_ROWS:
         rows.append({"name": name, "route": "cuda", "source": f"udal_tpu_torch/csrc/{source}.cu",
-                     "replaces": replaces, "launches": packed.launches[name],
+                     "replaces": replaces, "launches": packed_launches[name],
                      "max_abs_err": packed_err[name], "ms": bench[case],
                      "plain_ms": bench[plain_case]})
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bounds[row["name"]]
+        row["library_ms"] = library.get(row["name"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -183,10 +183,74 @@ def test_fused_expand_dw_kernel_matches_plain_bf16(cuda, k, s):
     one ulp of the largest."""
     x, we, b0, m1, wd, b1, m2 = expand_operands(3, 4, 32, 96, 24, 40, k, cuda, torch.bfloat16)
     want = fused_mbconv.fused_expand_dw_plain(x, we, b0, m1, wd, b1, m2, s, k)
-    got = fused_mbconv.fused_expand_dw(x, we, b0, m1, wd, b1, m2, s, k)
+    got = fused_mbconv.fused_expand_dw(x, we, b0, m1, wd, b1, m2, s, k, "swish",
+                                       fused_mbconv.split_weights(we))
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
     assert_bf16_close(got[0], want[0], 2, 1)
     torch.testing.assert_close(got[1], want[1], atol=1e-2, rtol=1e-3)
+
+
+# the distinct (Cin, Ce, k, s) of EfficientNet-B0's expand blocks 1-15
+D0_EXPAND = [(16, 96, 3, 2), (24, 144, 3, 1), (24, 144, 5, 2), (40, 240, 5, 1), (40, 240, 3, 2),
+             (80, 480, 3, 1), (80, 480, 5, 1), (112, 672, 5, 1), (112, 672, 5, 2),
+             (192, 1152, 5, 1), (192, 1152, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,ce,k,s", D0_EXPAND)
+def test_fused_expand_dw_tc_matches_plain_at_d0_blocks(cuda, cin, ce, k, s):
+    """The bf16 kernel (expand on tensor cores, We split in hi and lo) at
+    every block shape of d0, at 20x40: several pixel passes, Cin through
+    the 16-channel ring, a ragged last channel tile at Ce = 144 and 240.
+    The tolerance of the main path's check: 2 ulps plus 1 ulp of the
+    largest y, SE sums to 1e-3 of the largest."""
+    x, we, b0, m1, wd, b1, m2 = expand_operands(12, 2, cin, ce, 20, 40, k, cuda, torch.bfloat16)
+    want = fused_mbconv.fused_expand_dw_plain(x, we, b0, m1, wd, b1, m2, s, k)
+    before = fused_mbconv.launches
+    got = fused_mbconv.fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, s, k, "swish",
+                                            fused_mbconv.split_weights(we))
+    torch.cuda.synchronize()
+    assert fused_mbconv.launches == before + 1
+    assert_bf16_close(got[0], want[0], 2, 1)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-3,
+                               atol=1e-3 * want[1].abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s", [(3, 1), (5, 2)])
+def test_fused_expand_dw_tc_takes_odd_widths_and_views(cuda, k, s):
+    """W = 21 and Cin = 20 (plain loads instead of 16-byte copies), and x as
+    a view 2 bytes off an aligned address: the same values."""
+    x, we, b0, m1, wd, b1, m2 = expand_operands(13, 3, 20, 48, 19, 21, k, cuda, torch.bfloat16)
+    want = fused_mbconv.fused_expand_dw_plain(x, we, b0, m1, wd, b1, m2, s, k)
+    got = fused_mbconv.fused_expand_dw(x, we, b0, m1, wd, b1, m2, s, k, "swish",
+                                       fused_mbconv.split_weights(we))
+    assert_bf16_close(got[0], want[0], 2, 1)
+    x2, we2, b0, m1, wd, b1, m2 = expand_operands(14, 2, 24, 96, 16, 32, k, cuda, torch.bfloat16)
+    base = torch.empty(x2.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    xv = base[1:].view(x2.shape)
+    xv.copy_(x2)
+    assert xv.data_ptr() % 16 != 0
+    want = fused_mbconv.fused_expand_dw_plain(x2, we2, b0, m1, wd, b1, m2, s, k)
+    got = fused_mbconv.fused_expand_dw(xv, we2, b0, m1, wd, b1, m2, s, k, "swish",
+                                       fused_mbconv.split_weights(we2))
+    assert_bf16_close(got[0], want[0], 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,ce,k,s", D0_EXPAND)
+def test_fused_expand_dw_planner_counts_the_kernels_shared_memory(cuda, cin, ce, k, s):
+    """The tile planners' shared-memory model equals the source's count, for
+    both kernels at d0's block shapes, at the spatial sizes of d0's
+    stages at 1024x512 and at the tests' 20x40."""
+    for h, w in ((20, 40), (256, 512), (128, 256), (64, 128), (32, 64), (16, 32)):
+        ho, wo = -(-h // s), -(-w // s)
+        th, tw = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k)
+        assert (fused_mbconv.kernel_smem_bytes(True, cin, th, tw, s, k)
+                == fused_mbconv.tc_smem_bytes(cin, th, tw, s, k))
+        th, tw = fused_mbconv.tile_shape(ho, wo, cin, s, k)
+        assert (fused_mbconv.kernel_smem_bytes(False, cin, th, tw, s, k)
+                == fused_mbconv.smem_bytes(cin, th, tw, s, k))
 
 
 @pytest.mark.cuda
@@ -210,6 +274,8 @@ def test_fused_kernels_raise_on_what_they_do_not_take(cuda):
         fused_mbconv.fused_expand_dw(x, we.bfloat16(), b0, m1, wd, b1, m2, 1, 3)
     with pytest.raises(ValueError, match="stride"):
         fused_mbconv.fused_expand_dw(x, we, b0, m1, wd, b1, m2, 3, 3)
+    with pytest.raises(ValueError, match="we_split"):
+        fused_mbconv.fused_expand_dw(x.bfloat16(), we, b0, m1, wd, b1, m2, 1, 3)
 
 
 def bf16_normal(seed, shape, dev, scale=1.0):
@@ -239,6 +305,30 @@ def test_packed_pointwise_kernel_matches_plain(cuda, m, k, n, m_tile):
     got = launched("packed_pointwise", lambda: packed.packed_pointwise(xp, w, m_tile))
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     assert_bf16_close(got, packed.packed_pointwise_plain(xp, w, m_tile), 1, 0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,m_tile", [(65536, 72, 200, 128), (8192, 200, 136, 8192),
+                                          (3000, 27, 13, 125), (20000, 512, 264, 400)])
+def test_packed_pointwise_ring_wraps(cuda, m, k, n, m_tile):
+    """Shapes where a block walks many row tiles and its stage ring wraps:
+    K not a multiple of 16 (72, 200, 27) or of the 64-column stage, N not
+    a multiple of 128, one unit larger than the grid, the largest K."""
+    xp, w = bf16_normal(15, (m, k), cuda), bf16_normal(16, (k, n), cuda, 0.1)
+    got = launched("packed_pointwise", lambda: packed.packed_pointwise(xp, w, m_tile))
+    assert_bf16_close(got, packed.packed_pointwise_plain(xp, w, m_tile), 1, 0.01)
+
+
+@pytest.mark.cuda
+def test_packed_pointwise_takes_a_misaligned_view(cuda):
+    """x 2 bytes off an aligned address: plain loads and stores, the same
+    values."""
+    base = bf16_normal(17, (640 * 48 + 1,), cuda)
+    xp = base[1:].view(640, 48)
+    assert xp.data_ptr() % 16 != 0
+    w = bf16_normal(18, (48, 136), cuda, 0.1)
+    got = launched("packed_pointwise", lambda: packed.packed_pointwise(xp, w, 64))
+    assert_bf16_close(got, packed.packed_pointwise_plain(xp, w, 64), 1, 0.01)
 
 
 @pytest.mark.cuda

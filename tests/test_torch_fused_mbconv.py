@@ -122,14 +122,90 @@ def test_expanded_tensor_is_rounded_to_the_working_type():
 
 
 def test_tile_shape_fits_shared_memory():
+    """The f32 kernel's tile: its folded weights and expanded tile, f32,
+    fit the budget."""
     for ho, wo, cin, s, k in [(128, 256, 16, 2, 3), (64, 128, 24, 2, 5),
                               (16, 32, 192, 1, 5), (3, 200, 320, 2, 5)]:
-        for itemsize in (2, 4):
-            th, tw = fused_mbconv.tile_shape(ho, wo, cin, s, k, itemsize)
-            assert 1 <= th <= ho and 1 <= tw <= min(wo, 64)
-            staged = (cin * fused_mbconv.CHANNEL_TILE * 4 + fused_mbconv.CHANNEL_TILE
-                      * ((th - 1) * s + k) * ((tw - 1) * s + k) * itemsize)
-            assert staged <= fused_mbconv.SMEM_BUDGET
+        th, tw = fused_mbconv.tile_shape(ho, wo, cin, s, k)
+        assert 1 <= th <= ho and 1 <= tw <= min(wo, 64)
+        staged = (cin * fused_mbconv.CHANNEL_TILE * 4 + fused_mbconv.CHANNEL_TILE
+                  * ((th - 1) * s + k) * ((tw - 1) * s + k) * 4)
+        assert staged == fused_mbconv.smem_bytes(cin, th, tw, s, k)
+        assert staged <= fused_mbconv.SMEM_BUDGET
+
+
+def test_weight_split_keeps_the_f32_weights():
+    """hi = bf16(We), lo = bf16(We - hi), both We^T [Ce, Cin]: hi + lo is We
+    to 2^-16 of each weight (the bound is 2^-18 from two roundings)."""
+    we = torch.from_numpy(np.random.RandomState(30).normal(0, 0.3, (40, 96)).astype(np.float32))
+    hi, lo = fused_mbconv.split_weights(we)
+    assert hi.shape == lo.shape == (96, 40) and hi.dtype == lo.dtype == torch.bfloat16
+    assert hi.is_contiguous() and lo.is_contiguous()
+    back = (hi.float() + lo.float()).t()
+    assert torch.all((back - we).abs() <= 2.0 ** -16 * we.abs())
+    assert (hi.float().t() - we).abs().max() > 2.0 ** -12 * we.abs().max()  # lo matters
+
+
+def bf16_excess(got, want, ulps, top_ulps):
+    """Largest amount by which |got - want| exceeds ulps · ulp(|want|) +
+    top_ulps · ulp(max |want|) in bf16 (8 significant bits); <= 0 passes."""
+    got, want = got.float(), want.float()
+    ulp = lambda t: torch.ldexp(torch.ones_like(t), torch.frexp(t.abs())[1] - 8)  # noqa: E731
+    return float(((got - want).abs() - ulps * ulp(want) - top_ulps * ulp(want.abs().max())).max())
+
+
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
+def test_split_expand_emulation_matches_the_plain_version(k, s):
+    """The bf16 kernel's arithmetic in f32 on the CPU: x · hi + x · lo
+    (bf16 products, exact in f32), then b0, z's swish as v/2 + v/2 tanh(v/2)
+    with tanh off by its approximation's 2^-11 relative error (either
+    way), m1 and the rounding of z, then the plain depthwise and the exact
+    swish. Within the tolerance the card's kernel is held to: 2 bf16 ulps
+    plus 1 ulp of the largest y, SE sums to 1e-3 of the largest."""
+    o = {n: torch.from_numpy(v) for n, v in operands(40 + k + s, k).items()}
+    x = o["x"].bfloat16()
+    hi, lo = fused_mbconv.split_weights(o["we"])
+    acc = (torch.einsum("nchw,ec->nehw", x.float(), hi.float())
+           + torch.einsum("nchw,ec->nehw", x.float(), lo.float()))
+    y, se = fused_mbconv.fused_expand_dw_plain(x, o["we"], o["b0"], o["m1"], o["wd"], o["b1"],
+                                               o["m2"], s, k)
+    for tanh_err in (-2.0 ** -11, 2.0 ** -11):
+        h = 0.5 * (acc + o["b0"][:, None, None])
+        z = (h + h * torch.tanh(h) * (1 + tanh_err)) * o["m1"][:, :, None, None]
+        z = z.bfloat16().float()
+        a = fused_mbconv.depthwise_same(z, o["wd"], s) + o["b1"][:, None, None]
+        a = torch.nn.functional.silu(a) * o["m2"][:, :, None, None]
+        assert bf16_excess(a.bfloat16(), y, 2, 1) <= 0
+        torch.testing.assert_close(a.sum((2, 3)), se, rtol=1e-3,
+                                   atol=1e-3 * float(se.abs().max()))
+
+
+D0_BLOCKS = [(a.input_filters, a.input_filters * a.expand_ratio, h, w, a.kernel_size,
+              a.strides[0])
+             for a, h, w in torch_effnet.block_input_sizes(
+                 torch_effnet.backbone_spec("efficientnet-b0"), 256, 512)[1:]]
+# the shapes of the card tests (tests/test_torch_cuda.py) beside d0's blocks
+# at 1024x512
+TC_PLAN_CASES = D0_BLOCKS + [(24, 40, 17, 70, 3, 1), (32, 96, 24, 40, 5, 2),
+                             (16, 96, 20, 24, 3, 2), (192, 1152, 9, 13, 5, 1)]
+
+
+@pytest.mark.parametrize("cin,ce,h,w,k,s", TC_PLAN_CASES)
+def test_tc_tile_shape_fits_shared_memory(cin, ce, h, w, k, s):
+    """The bf16 kernel's tile planner: a tile inside the output whose block
+    fits the budget, so two blocks share an SM (228 KB, less 1 KB reserved
+    and the static b0 and m1 of each)."""
+    ho, wo = -(-h // s), -(-w // s)
+    th, tw = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k)
+    assert 1 <= th <= ho and 1 <= tw <= min(wo, 64)
+    smem = fused_mbconv.tc_smem_bytes(cin, th, tw, s, k)
+    assert smem <= fused_mbconv.TC_SMEM_BUDGET
+    assert 2 * (smem + 8 * fused_mbconv.TC_CHANNEL_TILE + 1024) <= 228 * 1024
+
+
+def test_d0_has_fifteen_expand_blocks():
+    assert len(D0_BLOCKS) == 15 and D0_BLOCKS[0] == (16, 96, 256, 512, 3, 2)
+    assert D0_BLOCKS[-1] == (192, 1152, 16, 32, 3, 1)
 
 
 def random_block_variables(block, x, seed):

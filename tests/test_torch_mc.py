@@ -210,7 +210,8 @@ def test_serve_preprocessed_mc_matches_as_matched_sets(case, monkeypatch):
         case["images"], scales)
 
     v = case["variables"]
-    driver = ServingDriver(case["torch_cfg"], flax_to_torch(v["params"], v["batch_stats"]))
+    driver = ServingDriver(case["torch_cfg"], flax_to_torch(v["params"], v["batch_stats"]),
+                           device="cpu")
     driver.masks = MaskTable(tables(case))
     got = driver.serve_preprocessed(case["images"], scales)
     assert driver.masks.tables == []
@@ -247,7 +248,8 @@ def test_serve_deterministic_end_to_end(case):
     cls, box = JaxNet(jax_cfg).apply(v, images, False)
     want = jax.jit(lambda c, b, s: postprocess_global(jax_cfg, c, b, image_scales=s))(
         list(cls), list(box), scales).packed()
-    got = ServingDriver(torch_cfg, flax_to_torch(v["params"], v["batch_stats"])).serve(raw)
+    got = ServingDriver(torch_cfg, flax_to_torch(v["params"], v["batch_stats"]),
+                        device="cpu").serve(raw)
     assert [tuple(g.shape) for g in got] == [(B, 100, 8), (B, 100), (B, 100), (B,)]
 
     def check_al(g_boxes, w_boxes, g_classes, w_classes):
@@ -255,3 +257,18 @@ def test_serve_deterministic_end_to_end(case):
 
     as_cols = lambda p: (p[0], p[1], p[2][..., None], p[3])  # noqa: E731
     match_detections(as_cols(got), as_cols(want), check_al)
+
+
+def test_serving_driver_runs_on_the_card_unless_asked(case, monkeypatch):
+    """Built without ``device`` the driver takes the card; without one it
+    raises before building anything, and never serves on the CPU quietly.
+    The CPU is asked for by name."""
+    v = case["variables"]
+    state = flax_to_torch(v["params"], v["batch_stats"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ServingDriver(case["torch_cfg"], state)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ServingDriver(case["torch_cfg"], state, device="cuda:0")
+    driver = ServingDriver(case["torch_cfg"], state, device="cpu")
+    assert driver.device.type == "cpu" and driver.dtype == torch.float32

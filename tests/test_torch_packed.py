@@ -199,12 +199,12 @@ def test_tool_block_diag_weight_is_the_scripts(jax_probe):
 
 
 def test_tool_check_passes_on_the_cpu(monkeypatch, capsys):
-    """``check`` at N = 8 holds the plain versions against the script's
-    references and asserts (ROADMAP C6); B6 and B7 return the input's rows
-    (C5). No kernel runs on the CPU."""
+    """``check --cpu`` at N = 8 holds the plain versions against the
+    script's references and asserts (ROADMAP C6); B6 and B7 return the
+    input's rows (C5). No kernel runs on the CPU."""
     monkeypatch.setattr(port_tool, "N", 8)
     before = dict(packed.launches)
-    assert port_tool.main(["check"]) == {}
+    assert port_tool.main(["check", "--cpu"]) == {}
     assert packed.launches == before
     lines = capsys.readouterr().out.splitlines()
     cases = [line.split('"case": "')[1].split('"')[0] for line in lines]
@@ -219,3 +219,13 @@ def test_tool_timed_cases_need_a_card(monkeypatch):
         port_tool.main(["a1_pw"])
     with pytest.raises(SystemExit, match="unknown"):
         port_tool.main(["a3"])
+
+
+def test_tool_check_runs_on_the_card_unless_asked(monkeypatch):
+    """``check`` without ``--cpu`` needs a card and raises without one;
+    ``--cpu`` goes with ``check`` alone."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        port_tool.main(["check"])
+    with pytest.raises(SystemExit, match="--cpu"):
+        port_tool.main(["a1_pw", "--cpu"])

@@ -32,8 +32,10 @@ class ServingDriver:
       boxes, scores, classes, valid_len = driver.serve(uint8_images)
 
     ``state_dict`` holds the model weights (for instance from
-    ``convert.flax_to_torch``). The compute dtype is bf16 on a CUDA device
-    and f32 on the CPU unless ``dtype`` is given. MC-dropout masks come from
+    ``convert.flax_to_torch``). It runs on the card (``cuda``) unless
+    ``device`` says otherwise, and raises without one; the CPU is asked for
+    as ``device="cpu"``. The compute dtype is bf16 on a CUDA device and f32
+    on the CPU unless ``dtype`` is given. MC-dropout masks come from
     a ``torch.Generator`` seeded with ``mc_seed``; ``self.masks`` is the
     source the forward draws from.
     """
@@ -41,7 +43,10 @@ class ServingDriver:
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  dtype: Optional[torch.dtype] = None, mc_seed: int = 0, device=None):
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ServingDriver runs on a CUDA device unless device='cpu' is "
+                               "given, and torch.cuda.is_available() is False")
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.dtype = dtype

@@ -49,6 +49,44 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// For values rounded to bf16 next and used nowhere else (8 significant
+// bits): swish as v/2 + v/2 tanh(v/2), one MUFU operation (tanh.approx,
+// about 2^-11 relative) where exp and a reciprocal take two. Only the
+// tensor-core expand kernel's z takes it; its swishes set that kernel's
+// floor. A = kAnyAct takes the activation `act` at run time.
+constexpr int kAnyAct = -1;
+
+template <int A>
+__device__ __forceinline__ float activate_bf16(float v, int act) {
+  if constexpr (A == kSwish) {
+    const float h = 0.5f * v;
+    float t;
+    asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(h));
+    return fmaf(h, t, h);
+  } else {
+    return activate(v, act);
+  }
+}
+
+template <int A>
+struct ActTag {
+  static constexpr int kAct = A;
+};
+
+// f(ActTag<kSwish>{}) for swish, the model's activation, else
+// f(ActTag<kAnyAct>{}): a generic lambda gets the activation as a constant
+// (decltype(tag)::kAct), so its unrolled loops hold one compact copy of
+// swish; a runtime switch in each unrolled copy scatters the code of every
+// case through the loop and thrashes the instruction cache
+template <typename F>
+__device__ __forceinline__ void with_activation(int act, F&& f) {
+  if (act == kSwish) {
+    f(ActTag<kSwish>{});
+  } else {
+    f(ActTag<kAnyAct>{});
+  }
+}
+
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Where a block sits: image n, first channel c0, first output row and
@@ -114,6 +152,78 @@ __device__ __forceinline__ void depthwise_epilogue(
       const float v = activate(acc * sc + bi, act) * mk;
       dst[static_cast<size_t>(oh) * Wo + ow] = from_float<T>(v);
       sum += v;
+    }
+    if (partial != nullptr) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) partial[static_cast<size_t>(pos.tile) * N * C + pos.n * C + c] = sum;
+    }
+  }
+}
+
+// The same stencil and epilogue with each lane on kSeg (4 or 8) outputs
+// down a column: the lane reads the (kSeg-1)*S+K staged values of each of
+// the K columns once into registers and forms the kSeg outputs from them (the
+// per-pixel stencil above reads K*K values an output). Lanes take
+// neighbouring columns, so a warp's loads fall in distinct banks and its
+// stores coalesce; rows past the staged tile are not read. One warp per
+// channel as above; the SE partial is the lanes' sums reduced in a fixed
+// order. No scale (it is folded into the taps). The activation is the exact
+// one (activate, specialised to A when A is not kAnyAct): its values also go
+// into the f32 SE sum, which is not rounded to bf16.
+template <int A, int K, int S, int kSeg>
+__device__ __forceinline__ void depthwise_cols_epilogue(
+    const __nv_bfloat16* __restrict__ s_in, int ct, int plane, int row, int col0, int ih,
+    int th, int tw, const TilePos& pos, const float* __restrict__ taps,
+    const float* __restrict__ bias, const float* __restrict__ mask,
+    int act, __nv_bfloat16* __restrict__ y, float* __restrict__ partial, int N, int C, int Ho,
+    int Wo) {
+  constexpr int kSpan = (kSeg - 1) * S + K;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int groups = ceil_div(th, kSeg);
+  for (int cl = warp; cl < ct; cl += kWarps) {
+    const int c = pos.c0 + cl;
+    if (c >= C) break;
+    float w[K * K];
+#pragma unroll
+    for (int i = 0; i < K * K; ++i) w[i] = __ldg(taps + c * K * K + i);
+    const float bi = __ldg(bias + c);
+    const float mk = mask != nullptr ? __ldg(mask + pos.n * C + c) : 1.f;
+    const __nv_bfloat16* src = s_in + static_cast<size_t>(cl) * plane + col0;
+    __nv_bfloat16* dst = y + static_cast<size_t>(pos.n * C + c) * Ho * Wo;
+    float sum = 0.f;
+    for (int it = lane; it < groups * tw; it += 32) {
+      const int g = it / tw;
+      const int q = it - g * tw;
+      const int r0 = g * kSeg;
+      const int ow = pos.ow0 + q;
+      if (ow >= Wo) continue;
+      float acc[kSeg];
+#pragma unroll
+      for (int o = 0; o < kSeg; ++o) acc[o] = 0.f;
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx) {
+        const __nv_bfloat16* cp = src + r0 * S * row + q * S + dx;
+        float v[kSpan];
+#pragma unroll
+        for (int i = 0; i < kSpan; ++i) {
+          v[i] = r0 * S + i < ih ? __bfloat162float(cp[i * row]) : 0.f;
+        }
+#pragma unroll
+        for (int o = 0; o < kSeg; ++o)
+#pragma unroll
+          for (int dy = 0; dy < K; ++dy) acc[o] += v[o * S + dy] * w[dy * K + dx];
+      }
+      const int valid = min(min(kSeg, th - r0), Ho - pos.oh0 - r0);
+#pragma unroll
+      for (int o = 0; o < kSeg; ++o) {
+        const float out = activate(acc[o] + bi, A == kAnyAct ? act : A) * mk;
+        if (o < valid) {
+          dst[static_cast<size_t>(pos.oh0 + r0 + o) * Wo + ow] = __float2bfloat16(out);
+          sum += out;
+        }
+      }
     }
     if (partial != nullptr) {
 #pragma unroll

@@ -310,9 +310,11 @@ class MBConvBlock(nn.Module):
     def fold(self) -> Dict[str, torch.Tensor]:
         """The fused call's f32 operands, inference BatchNorm folded in:
         ``we`` [Cin, Ce] (bn0 scale), ``b0``, ``wd`` [Ce, k, k] (bn1 scale)
-        and ``b1`` for a block that expands; the raw ``taps`` [C, k, k] with
+        and ``b1`` for a block that expands, with ``we_split``, We^T as bf16
+        hi and lo for the tensor-core kernel; the raw ``taps`` [C, k, k] with
         bn1's ``scale`` and ``bias`` for one that does not."""
         from udal_tpu_torch.ops.fused_dw import fold_bn  # ops/fused_dw imports this module
+        from udal_tpu_torch.ops.fused_mbconv import split_weights
 
         with torch.no_grad():
             bn1 = self.bn1
@@ -323,7 +325,8 @@ class MBConvBlock(nn.Module):
             bn0 = self.bn0
             s0, b0 = fold_bn(bn0.weight, bn0.bias, bn0.running_mean, bn0.running_var, bn0.eps)
             we = self.expand_conv.weight[:, :, 0, 0].float() * s0[:, None]
-            return dict(we=we.t().contiguous(), b0=b0,
+            we = we.t().contiguous()
+            return dict(we=we, we_split=split_weights(we), b0=b0,
                         wd=(taps * s1[:, None, None]).contiguous(), b1=b1)
 
     def prepare_inference(self) -> None:
@@ -347,7 +350,7 @@ class MBConvBlock(nn.Module):
             m1 = dropout_mask(masks, n, c, rate, x.device)
             m2 = dropout_mask(masks, n, c, rate, x.device)
             x, se_sum = fused_expand_dw(x, f["we"], f["b0"], m1, f["wd"], f["b1"], m2,
-                                        s, k, self.act_type)
+                                        s, k, self.act_type, f["we_split"])
             pooled = se_sum / (x.shape[-2] * x.shape[-1])
         else:
             m2 = dropout_mask(masks, n, c, rate, x.device)
@@ -359,6 +362,17 @@ class MBConvBlock(nn.Module):
         if self.residual:
             x = x + inputs
         return x
+
+
+def block_input_sizes(spec: BackboneSpec, height: int,
+                      width: int) -> List[Tuple[BlockArgs, int, int]]:
+    """(block args, input rows, input columns) of each MBConv block for a
+    stem output of ``height`` x ``width`` (the image at stride 2)."""
+    out = []
+    for a in expand_blocks(spec):
+        out.append((a, height, width))
+        height, width = -(-height // a.strides[0]), -(-width // a.strides[0])
+    return out
 
 
 class EfficientNet(nn.Module):

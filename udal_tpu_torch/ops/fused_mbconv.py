@@ -14,6 +14,11 @@ a mean). The expanded tensor z is rounded to the working type before the
 depthwise, in the kernel's shared-memory tile as in the TPU kernel's ring
 buffer, and in the plain version alike.
 
+In bf16 the kernel runs the expand on tensor cores from a split of the
+folded f32 weights, ``split_weights``: hi = bf16(We), lo = bf16(We - hi),
+both multiplied into one f32 sum, so We keeps about 16 bits (its products
+with bf16 x are exact in f32). In f32 the expand runs on CUDA cores.
+
 Two departures from the TPU kernel: the layout is the port's NCHW (the
 batch-in-lanes [H, W, C, N] was a TPU layout), and the stride-2 windows
 follow TF SAME, with the extra pad at the end as the model's convolution
@@ -37,8 +42,16 @@ from udal_tpu_torch.ops._build import load_library
 from udal_tpu_torch.ops.fused_dw import (ACTS, check_conv, check_operands, depthwise_same,
                                          output_size, same_pads, spatial_tile)
 
-CHANNEL_TILE = 16                 # expanded channels a block computes (kCT in the source)
-SMEM_BUDGET = 160 * 1024          # bytes of shared memory a block may take
+# The tile planners model each kernel's shared memory; before a launch the
+# model is checked against the source's own count (udal_fused_expand_dw_smem).
+CHANNEL_TILE = 16                 # f32: expanded channels a block computes (kCT in the source)
+SMEM_BUDGET = 160 * 1024          # f32: bytes of shared memory a block may take
+# bf16 (tensor cores): the source's kTcCT, kKC, kNP and kStages, and the
+# shared memory of a block when two share an SM (228 KB, 1 KB each
+# reserved, 256 bytes of static b0 and m1)
+TC_CHANNEL_TILE = 32
+TC_K_CHUNK, TC_PIXELS, TC_STAGES = 16, 256, 3
+TC_SMEM_BUDGET = 112 * 1024
 launches = 0
 
 
@@ -60,33 +73,85 @@ def fused_expand_dw_plain(x: torch.Tensor, we: torch.Tensor, b0: torch.Tensor,
     return a.to(x.dtype), a.sum(dim=(2, 3))
 
 
-def tile_shape(ho: int, wo: int, cin: int, stride: int, ksize: int,
-               itemsize: int) -> Tuple[int, int]:
-    """Output tile (rows, cols) whose staged tile fits ``SMEM_BUDGET``: the
-    folded weights [Cin, 16] in f32 and the expanded tile
-    [16, (th-1)·s+k, (tw-1)·s+k] in x's type."""
+def smem_bytes(cin: int, th: int, tw: int, stride: int, ksize: int) -> int:
+    """Dynamic shared memory of the f32 kernel (``f32_smem_bytes`` in the
+    source): the folded weights [Cin, 16] and the expanded tile
+    [16, (th-1)·s+k, (tw-1)·s+k], f32."""
+    return 4 * CHANNEL_TILE * (cin + ((th - 1) * stride + ksize) * ((tw - 1) * stride + ksize))
+
+
+def tile_shape(ho: int, wo: int, cin: int, stride: int, ksize: int) -> Tuple[int, int]:
+    """Output tile (rows, cols) of the f32 kernel whose block fits
+    ``SMEM_BUDGET``."""
     th, tw = spatial_tile(ho, wo)
-
-    def smem(th, tw):
-        return (cin * CHANNEL_TILE * 4 + CHANNEL_TILE * ((th - 1) * stride + ksize)
-                * ((tw - 1) * stride + ksize) * itemsize)
-
-    while smem(th, tw) > SMEM_BUDGET and th > 1:
+    while smem_bytes(cin, th, tw, stride, ksize) > SMEM_BUDGET and th > 1:
         th = (th + 1) // 2
-    while smem(th, tw) > SMEM_BUDGET and tw > 1:
+    while smem_bytes(cin, th, tw, stride, ksize) > SMEM_BUDGET and tw > 1:
         tw = (tw + 1) // 2
-    if smem(th, tw) > SMEM_BUDGET:
+    if smem_bytes(cin, th, tw, stride, ksize) > SMEM_BUDGET:
         raise ValueError(f"the fused expand + depthwise kernel cannot stage Cin={cin} "
                          f"input channels in {SMEM_BUDGET} bytes of shared memory")
     return th, tw
 
 
+def split_weights(we: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """We [Cin, Ce] f32 → (hi, lo), each We^T [Ce, Cin] contiguous bf16 with
+    hi = bf16(We) and lo = bf16(We - hi): hi + lo keeps We to about 2^-16
+    of its magnitude."""
+    wt = we.float().t().contiguous()
+    hi = wt.to(torch.bfloat16)
+    return hi, (wt - hi.float()).to(torch.bfloat16)
+
+
+def tc_smem_bytes(cin: int, th: int, tw: int, stride: int, ksize: int) -> int:
+    """Dynamic shared memory of the bf16 kernel (``tc_smem_bytes`` in the
+    source): We^T hi and lo [32, cin padded to 16 + 8], the x ring
+    [stages, 16, 256 + 8] and z [32, plane], bf16."""
+    ih, iw = (th - 1) * stride + ksize, (tw - 1) * stride + ksize
+    iwx = (iw + 14) // 8 * 8                 # staged columns: whole 8-column groups
+    plane = ih * iwx + (8 if ih * iwx % 16 == 0 else 0)
+    cinp = -(-cin // TC_K_CHUNK) * TC_K_CHUNK
+    ct = TC_CHANNEL_TILE
+    return 2 * (2 * ct * (cinp + 8) + TC_STAGES * TC_K_CHUNK * (TC_PIXELS + 8) + ct * plane)
+
+
+def tc_tile_shape(ho: int, wo: int, cin: int, stride: int, ksize: int) -> Tuple[int, int]:
+    """Output tile (rows, cols) of the bf16 kernel: of the tiles with rows a
+    power of two (or all of ``ho``) and up to 64 columns whose block fits
+    ``TC_SMEM_BUDGET``, the one that stages the fewest input pixels per
+    output pixel (the halo the expand recomputes), then the largest."""
+    rows = sorted({min(ho, 1 << i) for i in range(12)})
+    cols = sorted({min(wo, c) for c in (8, 16, 32, 64)})
+    best = None
+    for th in rows:
+        for tw in cols:
+            if tc_smem_bytes(cin, th, tw, stride, ksize) > TC_SMEM_BUDGET:
+                continue
+            staged = ((th - 1) * stride + ksize) * (((tw - 1) * stride + ksize + 14) // 8 * 8)
+            key = (staged / (th * tw), -th * tw)
+            if best is None or key < best[0]:
+                best = (key, (th, tw))
+    if best is None:
+        raise ValueError(f"the tensor-core expand + depthwise kernel cannot stage Cin={cin} "
+                         f"input channels in {TC_SMEM_BUDGET} bytes of shared memory")
+    return best[1]
+
+
 @functools.cache
 def _kernel():
     fn = load_library("fused_expand_dw").udal_fused_expand_dw
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def kernel_smem_bytes(tc: bool, cin: int, th: int, tw: int, stride: int, ksize: int) -> int:
+    """The source's count of a block's dynamic shared memory."""
+    fn = load_library("fused_expand_dw").udal_fused_expand_dw_smem
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return fn(int(tc), cin, th, tw, ksize, stride)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -105,8 +170,10 @@ def _check(x, we, b0, m1, wd, b1, m2, stride, ksize, act) -> None:
 
 
 def fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride: int, ksize: int,
-                         act: str = "swish") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/fused_expand_dw.cu`` on CUDA tensors (checked)."""
+                         act: str = "swish",
+                         we_split=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/fused_expand_dw.cu`` on CUDA tensors (checked). bf16
+    needs ``we_split = split_weights(we)``."""
     global launches
     _check(x, we, b0, m1, wd, b1, m2, stride, ksize, act)
     if x.device.type != "cuda":
@@ -115,17 +182,40 @@ def fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride: int, ksize: int,
     n, cin, h, w = x.shape
     ce = we.shape[1]
     ho, wo = output_size(h, w, stride)
-    th, tw = tile_shape(ho, wo, cin, stride, ksize, x.element_size())
+    tc = x.dtype == torch.bfloat16
+    hi = lo = None
+    vec = 0
+    if tc:
+        if we_split is None:
+            raise ValueError("the bf16 kernel takes the weights as we_split = "
+                             "split_weights(we)")
+        hi, lo = we_split
+        if hi.shape != (ce, cin) or lo.shape != (ce, cin) or hi.dtype != torch.bfloat16 \
+                or lo.dtype != torch.bfloat16 or not (hi.is_contiguous() and lo.is_contiguous()) \
+                or hi.device != x.device or lo.device != x.device:
+            raise ValueError(f"we_split must be two contiguous bfloat16 [{ce}, {cin}] tensors "
+                             f"on {x.device}")
+        th, tw = tc_tile_shape(ho, wo, cin, stride, ksize)
+        vec = int(w % 8 == 0 and cin % 8 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in (x, hi, lo)))
+        planned = tc_smem_bytes(cin, th, tw, stride, ksize)
+    else:
+        th, tw = tile_shape(ho, wo, cin, stride, ksize)
+        planned = smem_bytes(cin, th, tw, stride, ksize)
+    if kernel_smem_bytes(tc, cin, th, tw, stride, ksize) != planned:
+        raise RuntimeError(f"the tile planner counts {planned} bytes of shared memory for a "
+                           f"{th}x{tw} tile at Cin={cin}, the kernel "
+                           f"{kernel_smem_bytes(tc, cin, th, tw, stride, ksize)}")
     tiles = -(-ho // th) * -(-wo // tw)
     y = torch.empty((n, ce, ho, wo), dtype=x.dtype, device=x.device)
     partial = torch.empty((tiles, n, ce), dtype=torch.float32, device=x.device)
     se_sum = torch.empty((n, ce), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), we.data_ptr(), b0.data_ptr(), _ptr(m1), wd.data_ptr(),
-                        b1.data_ptr(), _ptr(m2), y.data_ptr(), partial.data_ptr(),
-                        se_sum.data_ptr(), int(x.dtype == torch.bfloat16), n, cin, ce, h, w,
+        err = _kernel()(x.data_ptr(), we.data_ptr(), _ptr(hi), _ptr(lo), b0.data_ptr(),
+                        _ptr(m1), wd.data_ptr(), b1.data_ptr(), _ptr(m2), y.data_ptr(),
+                        partial.data_ptr(), se_sum.data_ptr(), int(tc), n, cin, ce, h, w,
                         ksize, stride, ho, wo, same_pads(h, ksize, stride)[0],
-                        same_pads(w, ksize, stride)[0], th, tw, ACTS[act],
+                        same_pads(w, ksize, stride)[0], th, tw, vec, ACTS[act],
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused expand + depthwise kernel launch failed with CUDA error {err}")
@@ -136,7 +226,7 @@ def fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride: int, ksize: int,
 def fused_expand_dw(x: torch.Tensor, we: torch.Tensor, b0: torch.Tensor,
                     m1: Optional[torch.Tensor], wd: torch.Tensor, b1: torch.Tensor,
                     m2: Optional[torch.Tensor], stride: int, ksize: int,
-                    act: str = "swish") -> Tuple[torch.Tensor, torch.Tensor]:
+                    act: str = "swish", we_split=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """MBConv front half: x [N, Cin, H, W] → (y [N, Ce, H', W'], se_sum [N, Ce]).
 
     Args:
@@ -149,10 +239,13 @@ def fused_expand_dw(x: torch.Tensor, we: torch.Tensor, b0: torch.Tensor,
       b1: [Ce] f32 depthwise-side bias (bn1).
       stride, ksize: 1 or 2, 3 or 5 (TF SAME padding).
       act: a name in ``ACTS``.
+      we_split: ``split_weights(we)``, computed once by the caller; the bf16
+        kernel needs it, the f32 kernel and the plain version multiply by
+        ``we`` itself.
 
     The plain version runs for CPU tensors, the kernel for CUDA tensors.
     """
     _check(x, we, b0, m1, wd, b1, m2, stride, ksize, act)
     if x.device.type == "cpu":
         return fused_expand_dw_plain(x, we, b0, m1, wd, b1, m2, stride, ksize, act)
-    return fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride, ksize, act)
+    return fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride, ksize, act, we_split)

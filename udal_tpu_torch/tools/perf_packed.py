@@ -1,14 +1,15 @@
 """The port's packed-layout microbench: the counterpart of
 ``tools/perf_packed.py``, run through the kernels of ``ops/packed.py``.
 
-    python -m udal_tpu_torch.tools.perf_packed [a1_pw|a1_roll|p1|p2|a2|check ...]
+    python -m udal_tpu_torch.tools.perf_packed [a1_pw|a1_roll|p1|p2|a2|check ...] [--cpu]
 
 The cases keep the JAX script's shapes, seeds and module constants (N = 80
 images, G = 8 pixels packed into a row, blocks 3's 24 -> 144 at 128x256):
 
-  a1_pw    packed pointwise (B4) vs its plain version and the unpacked 1x1
+  a1_pw    packed pointwise (B4) vs its plain version, the unpacked 1x1
            conv (``F.conv2d``, bf16, channels-last: cuDNN), the counterpart
-           of the script's XLA conv.
+           of the script's XLA conv, and ``torch.matmul`` (cuBLAS) on the
+           same packed operands.
   a1_roll  the shift along W of the packed expanded tensor (B5).
   p1       x + 1 through the natural view (B6) and the packed view (B7).
   p2       the 3-tap depthwise along W with per-lane taps (B8).
@@ -21,9 +22,9 @@ With no case, a1_pw and a1_roll run, as in the JAX script.
 A timed case prints one JSON line per function: the medians of CUDA-event
 times of ``RUNS`` eager calls and of ``RUNS`` replays of the call captured
 in a CUDA graph, after ``WARMUP`` calls, with the card's name and power
-limit as nvidia-smi prints them. The timed cases need a CUDA device and
-raise without one; ``check`` runs on the CPU too, where it holds the plain
-versions against the references.
+limit as nvidia-smi prints them. Everything runs on the card and raises
+without one; ``check --cpu`` asks for the CPU, where ``check`` holds the
+plain versions against the references.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ N = 80
 G = 8  # spatial positions packed into a row
 H, W, CI, CE = 128, 256, 24, 144
 RUNS, WARMUP = 20, 3
+P1_ROUNDS = 5
 M_TILES = (512, 2048, 4096)
 
 
@@ -66,8 +68,8 @@ def gpu_line() -> str:
 
 def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
-        raise RuntimeError("the timed cases need a CUDA device; torch.cuda.is_available() "
-                           "is False")
+        raise RuntimeError("the tool runs on a CUDA device (check --cpu asks for the CPU); "
+                           "torch.cuda.is_available() is False")
     return torch.device("cuda:0")
 
 
@@ -268,7 +270,8 @@ def case_a1_pw(dev) -> list:
                   moved),
             timed(lambda: packed.packed_pointwise_plain(xp, wbd), f"plain_pw_{label}", "plain",
                   moved),
-            timed(lambda: F.conv2d(xc, wc), f"conv_pw_{label}", "cudnn_conv", moved)]
+            timed(lambda: F.conv2d(xc, wc), f"conv_pw_{label}", "cudnn_conv", moved),
+            timed(lambda: torch.matmul(xp, wbd), f"matmul_pw_{label}", "cublas_matmul", moved)]
 
 
 def case_a1_roll(dev) -> list:
@@ -286,6 +289,34 @@ def case_p1(dev) -> list:
             timed(lambda: packed.add_one_packed(xb, CI), "p1_copy_baseline", "kernel",
                   2 * nbytes(xb)),
             timed(lambda: packed.add_one_plain(xb, CI), "p1_plain", "plain", 2 * nbytes(xb))]
+
+
+def p1_rounds(dev, rounds: int = P1_ROUNDS) -> dict:
+    """B6, B7 and the plain ``x + 1`` at p1's shape, each captured once in a
+    CUDA graph after WARMUP calls, then ``rounds`` rounds of RUNS replays
+    of each in turn: {case: [median ms of each round]}. Each kernel
+    launches WARMUP + 1 times."""
+    _, xb = p1_operands(dev)
+    fns = {"p1_reshape_roundtrip": lambda: packed.add_one_natural(xb, CI),
+           "p1_copy_baseline": lambda: packed.add_one_packed(xb, CI),
+           "p1_plain": lambda: packed.add_one_plain(xb, CI)}
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            fn()
+    medians = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, graph in graphs.items():
+            medians[name].append(median_ms(graph.replay))
+    emit({"case": "p1_rounds", "runs": RUNS, "round_medians_ms": medians, "gpu": gpu_line()})
+    return medians
 
 
 def case_p2(dev) -> list:
@@ -316,12 +347,16 @@ CASES = {"a1_pw": case_a1_pw, "a1_roll": case_a1_roll, "p1": case_p1, "p2": case
 def main(argv=None):
     """Runs the cases named in ``argv`` (default: the command line). Returns
     ``check``'s dict of kernel-vs-plain differences, or the timed rows."""
-    cases = list(sys.argv[1:] if argv is None else argv) or ["a1_pw", "a1_roll"]
+    args = list(sys.argv[1:] if argv is None else argv)
+    cpu = "--cpu" in args
+    cases = [a for a in args if a != "--cpu"] or ["a1_pw", "a1_roll"]
     unknown = sorted(set(cases) - set(CASES) - {"check"})
     if unknown:
         raise SystemExit(f"unknown case(s) {unknown}; choose from {sorted(CASES)} or check")
+    if cpu and cases != ["check"]:
+        raise SystemExit("--cpu goes with check alone: the timed cases need a CUDA device")
     if "check" in cases:
-        return check(torch.device("cuda:0") if torch.cuda.is_available() else torch.device("cpu"))
+        return check(torch.device("cpu") if cpu else cuda_device())
     dev = cuda_device()
     rows = []
     for name, case in CASES.items():
