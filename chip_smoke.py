@@ -10,16 +10,20 @@ exit code:
 2. build: compiles ``udal_tpu_torch/csrc/{soft_nms,fused_dw,
    fused_expand_dw,packed_pointwise,packed_lane}.cu`` with nvcc (sm_90a),
    one process each, all at once; prints each kernel instance's registers,
-   shared memory and spills, and the count of tensor-core instructions
+   shared memory and spills (soft-NMS and the fused depthwise must not
+   spill), and the count of tensor-core instructions
    (HMMA, HGMMA) in the libraries of packed_pointwise and fused_expand_dw
    (cuobjdump -sass), which must not be 0.
 3. kernels vs plain, on the card:
    - soft-NMS at the main path's shapes (B=8, N=5000, K=100), gaussian and
      hard, random and tied scores: equal valid_len, equal indices over it,
-     scores within 1e-6.
+     scores within 1e-6; the cluster size it launches with (blocks an
+     image), its time, and the latency of one pick ((time at K - time at
+     K=1) / (K-1), the dependency floor of the K picks).
    - fused depthwise and fused expand + depthwise in f32 at N=8, every
-     (k, s) in {3,5}x{1,2}: the depthwise with act swish and identity, with
-     and without mask and mean; the expand with and without masks. Both
+     (k, s) in {3,5}x{1,2}: the depthwise on its fast and its general path
+     with act swish and identity, with and without mask and mean; the
+     expand with and without masks. Both
      sides sum in f32 in another order: 1e-5 (depthwise) and 1e-4 (expand,
      up to 192 products a sum), absolute and relative.
    - both in bf16 at the main path's shapes (the MC prefix at B=8, blocks
@@ -32,13 +36,16 @@ exit code:
      (expand: an expanded value can round the other way), SE sums and
      means to 1e-3 of their largest value.
    Median times of kernel, plain version and the unfused bf16 eager chain
-   (the unfused block code), from CUDA events; then the bf16 expand
+   (the unfused block code), from CUDA events (the depthwise at the MC
+   prefix on its fast path, which it must take, beside its general path,
+   held to the same tolerances); then the bf16 expand
    kernel's time at each of d0's 15 expand blocks at T*B=80 and their sum.
 4. the slice at full width: MC-dropout EfficientDet-d0 (1024x512, 8
    classes, loss attenuation, T=10 at rate 0.05, batch 8, bf16, random
    weights from a seed) serves uint8 batches; checks the packed shapes,
    finiteness, detections, and that every serve call launched the fused
-   depthwise kernel once (the MC prefix), the fused expand + depthwise
+   depthwise kernel once (the MC prefix, on its fast path), the fused
+   expand + depthwise
    kernel 15 times (blocks 1-15) and the NMS kernel once. With
    ``--profile``, a torch.profiler operator split of two serves follows.
 5. device parity: the same weights (numpy from a seed, through
@@ -46,7 +53,7 @@ exit code:
    on the card (kernels) with the same dropout masks, on the MC fold path,
    the MC path without the fold (block 0 masked at T*B) and the
    deterministic path; detections agree as matched sets, and the kernels
-   ran on the card only.
+   ran on the card only (the depthwise on its fast path).
 6. the packed-layout microbench (``udal_tpu_torch.tools.perf_packed``, the
    port of ``tools/perf_packed.py``): ``check`` at the tool's shapes (the
    script's references; each of the five kernels against its plain
@@ -59,7 +66,10 @@ exit code:
 
 The line before the last is a JSON summary of the kernels: each with its
 launches on the main path (phase 4, or phase 6's timed cases for the
-probes), largest error, time, plain time, its bound (the largest of the
+probes), largest error, time (soft_nms and fused_dw: device time of 10
+calls captured in a CUDA graph; fused_expand_dw: CUDA events around eager
+calls; the packed rows: the tool's graph medians), plain time (CUDA events
+around eager calls), its bound (the largest of the
 bytes it must move at 3.35 TB/s, its bf16 operations on tensor cores at
 989 TFLOP/s and its f32 operations at 67 TFLOP/s, the H100 SXM data
 sheet's rates), and the time of one PyTorch call that computes the same
@@ -67,6 +77,7 @@ function where there is one. The last line is ``{"ok": true, "device":
 {...}}``.
 """
 
+import itertools
 import json
 import re
 import statistics
@@ -171,13 +182,34 @@ def cuda_median_ms(fn, runs=25, warmup=5):
     return statistics.median(times)
 
 
+def graph_median_ms(fn, runs=25, calls=10):
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph, the median of ``runs`` replays over ``calls``. The kernels' own
+    time and the gaps between them, without the host's launch overhead or
+    the graph's own start (about 10 us on the H100). Counts ``calls``
+    launches of each kernel ``fn`` launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_median_ms(graph.replay, runs) / calls
+
+
 def ptxas_summary(name):
-    """One line per kernel instance: registers, shared memory, spills."""
-    spills, entry = "", None
+    """One line per kernel instance: registers, shared memory, spills.
+    Returns the instances that spill."""
+    spills, entry, spilled = "", None, []
     for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            base = re.search(r"(soft_nms_kernel|fused_dw_kernel|fused_expand_dw_kernel|"
+            base = re.search(r"(soft_nms_kernel|fused_dw_kernel|fused_dw_rows_kernel|"
+                             r"fused_expand_dw_kernel|"
                              r"expand_dw_tc_kernel|sum_partials|packed_pointwise_gmma_kernel|"
                              r"packed_pointwise_kernel|"
                              r"wshift_kernel|add_one_kernel|dw_w3_kernel)(I.*?EE)?", m.group(1))
@@ -191,6 +223,9 @@ def ptxas_summary(name):
             spills = line.split(":")[-1].strip()
         elif "registers" in line:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+            if re.search(r"[1-9]\d* bytes spill", spills):
+                spilled.append(entry)
+    return spilled
 
 
 def tensor_core_instructions(name):
@@ -264,6 +299,51 @@ def fused_operands(rng, n, cin, ce, h, w, k, dev, dtype, masked=True):
                 m1=masks[0], m2=masks[1])
 
 
+def check_soft_nms(dev, rng, smi):
+    """Phase 3, soft-NMS at B=8, N=5000, K=100. Returns the largest score
+    error, {mode: (kernel ms, plain ms)} and {mode: picks made}."""
+    max_err, times, picks = 0.0, {}, {}
+    for sigma, tied in ((0.5, False), (0.0, False), (0.5, True)):
+        boxes, scores = random_boxes(rng, BATCH, N_CAND, tied)
+        b = torch.from_numpy(boxes).to(dev)
+        s = torch.from_numpy(scores).to(dev)
+        thr = 0.001 if sigma > 0 else float("-inf")
+        want = nms.batched_soft_nms(b, s, K, 0.5, thr, sigma)
+        vlen = want.valid_len.cpu()
+        mode = ("gaussian" if sigma > 0 else "hard") + (" tied" if tied else "")
+        got = cuda_nms.soft_nms_cuda(b, s, K, 0.5, thr, sigma)
+        torch.cuda.synchronize()
+        if not torch.equal(got.valid_len.cpu(), vlen):
+            raise AssertionError(f"{mode}: valid_len {got.valid_len.tolist()} vs "
+                                 f"{vlen.tolist()}")
+        for i, n in enumerate(vlen.tolist()):
+            if not torch.equal(got.indices[i, :n], want.indices[i, :n]):
+                raise AssertionError(f"{mode} image {i}: picks differ")
+            max_err = max(max_err, float((got.scores[i, :n] - want.scores[i, :n]).abs().max()))
+        if max_err > 1e-6:
+            raise AssertionError(f"kernel scores differ from the plain version by {max_err}")
+        if tied:
+            phase(3, f"soft-NMS {mode} B={BATCH} N={N_CAND} K={K}: valid_len {vlen.tolist()} "
+                     f"equal, indices equal: ties broken alike; {smi}")
+            continue
+        picks[mode] = sum(vlen.tolist())
+        t_kernel = graph_median_ms(lambda: cuda_nms.launch_picks(b, s, K, 0.5, thr, sigma))
+        one = graph_median_ms(lambda: cuda_nms.launch_picks(b, s, 1, 0.5, thr, sigma))
+        per_pick = (t_kernel - one) / (K - 1) * 1e3
+        call = cuda_median_ms(lambda: cuda_nms.soft_nms_cuda(b, s, K, 0.5, thr, sigma))
+        times[mode] = (t_kernel,
+                       cuda_median_ms(lambda: nms.batched_soft_nms(b, s, K, 0.5, thr, sigma)))
+        phase(3, f"soft-NMS {mode} B={BATCH} N={N_CAND} K={K}: valid_len {vlen.tolist()} "
+                 f"equal, indices equal; clusters of {cuda_nms.CLUSTER} blocks an image "
+                 f"({BATCH * cuda_nms.CLUSTER} blocks of {cuda_nms.plan(N_CAND).threads} "
+                 f"threads); kernel (device time: 10 calls a CUDA graph, medians of 25 "
+                 f"replays) {t_kernel:.4f} ms, at K=1 {one:.4f} ms, {per_pick:.3f} us a pick "
+                 f"(dependency floor {per_pick * K / 1e3:.4f} ms); the wrapper's call with "
+                 f"pack_picks (eager) {call:.4f} ms; plain {times[mode][1]:.4f} ms (medians "
+                 f"of 25); {smi}")
+    return max_err, times, picks
+
+
 def check_fused_f32(dev, rng):
     """Phase 3, f32 at N=8 over every (k, s). Returns the largest errors."""
     worst = {"fused_dw": 0.0, "fused_expand_dw": 0.0}
@@ -283,20 +363,20 @@ def check_fused_f32(dev, rng):
                  f"within 1e-4")
         d = fused_operands(rng, 8, ce, ce, h, w, k, dev, torch.float32)
         taps = d["wd"]
-        for act in ("swish", "identity"):
-            for masked in (True, False):
-                mask = d["m2"] if masked else None
-                got = fused_dw.fused_depthwise_cuda(d["x"], taps, d["scale"], d["b1"], mask, s,
-                                                    act, masked)
-                want = fused_dw.fused_depthwise_plain(d["x"], taps, d["scale"], d["b1"], mask,
-                                                      s, act, masked)
-                for g, wt in zip(*((got, want) if masked else ((got,), (want,)))):
-                    torch.testing.assert_close(g, wt, atol=1e-5, rtol=1e-5)
-                y = got[0] if masked else got
-                worst["fused_dw"] = max(worst["fused_dw"], float(
-                    (y - (want[0] if masked else want)).abs().max()))
-        phase(3, f"fused_dw f32 N=8 C={ce} {tuple(d['x'].shape[2:])} k{k} s{s}, swish and "
-                 f"identity, mask+mean on/off: within 1e-5")
+        for path, act, masked in itertools.product(("fast", "general"), ("swish", "identity"),
+                                                   (True, False)):
+            mask = d["m2"] if masked else None
+            got = fused_dw.fused_depthwise_cuda(d["x"], taps, d["scale"], d["b1"], mask, s,
+                                                act, masked, path)
+            want = fused_dw.fused_depthwise_plain(d["x"], taps, d["scale"], d["b1"], mask,
+                                                  s, act, masked)
+            for g, wt in zip(*((got, want) if masked else ((got,), (want,)))):
+                torch.testing.assert_close(g, wt, atol=1e-5, rtol=1e-5)
+            y = got[0] if masked else got
+            worst["fused_dw"] = max(worst["fused_dw"], float(
+                (y - (want[0] if masked else want)).abs().max()))
+        phase(3, f"fused_dw f32 N=8 C={ce} {tuple(d['x'].shape[2:])} k{k} s{s}, fast and "
+                 f"general path, swish and identity, mask+mean on/off: within 1e-5")
     return worst
 
 
@@ -316,16 +396,25 @@ def check_fused_bf16(dev, rng, smi):
         else:
             args = (o["x"], o["wd"], o["scale"], o["b1"], None, s, "swish", True)
             kernel = lambda: fused_dw.fused_depthwise_cuda(*args)  # noqa: E731
+            general = lambda: fused_dw.fused_depthwise_cuda(*args, "general")  # noqa: E731
             plain = lambda: fused_dw.fused_depthwise_plain(*args)  # noqa: E731
             ulps, top_ulps, name = 1, 0.01, "fused_dw"
+        fast_before = fused_dw.path_launches["fast"]
         got, want = kernel(), plain()
         torch.cuda.synchronize()
+        outs = [("", got)]
+        if not expand:
+            if fused_dw.path_launches["fast"] != fast_before + 1:
+                raise AssertionError(f"fused_dw {what} did not take the fast path")
+            outs.append((" (general path)", general()))
+        for tag, out in outs:
+            excess, in_top = bf16_excess(out[0], want[0], ulps, top_ulps)
+            if excess > 0:
+                raise AssertionError(f"{name}{tag} {what}: y beyond {ulps} + {top_ulps} top "
+                                     f"bf16 ulps by {excess}")
+            torch.testing.assert_close(out[1], want[1], rtol=1e-3,
+                                       atol=1e-3 * float(want[1].abs().max()))
         excess, in_top = bf16_excess(got[0], want[0], ulps, top_ulps)
-        if excess > 0:
-            raise AssertionError(f"{name} {what}: y beyond {ulps} + {top_ulps} top bf16 ulps "
-                                 f"by {excess}")
-        torch.testing.assert_close(got[1], want[1], rtol=1e-3,
-                                   atol=1e-3 * float(want[1].abs().max()))
         se_err = float((got[1] - want[1]).abs().max() / want[1].abs().max())
         block = eager_modules(o, expand, cin, ce, k, s, dev)
         t_kernel = cuda_median_ms(kernel, runs=15, warmup=3)
@@ -333,6 +422,20 @@ def check_fused_bf16(dev, rng, smi):
         t_eager = cuda_median_ms(lambda: eager_chain(o["x"], block, o["m1"], o["m2"]),
                                  runs=15, warmup=3)
         err = float((got[0].float() - want[0].float()).abs().max())
+        if not expand:
+            plan = fused_dw.row_plan(h, w, k, s, 2)
+            t_call, t_kernel = t_kernel, graph_median_ms(kernel)
+            t_general = graph_median_ms(general)
+            nbytes = 2 * 2 * n * cin * h * w
+            y_copy = torch.empty_like(o["x"])
+            t_copy = graph_median_ms(lambda: y_copy.copy_(o["x"]))
+            phase(3, f"fused_dw bf16 {what}, device time (10 calls a CUDA graph, medians of 25 "
+                     f"replays): fast "
+                     f"path (bands of {plan.th} rows x {plan.iwx} staged columns, ring of "
+                     f"{fused_dw.ROW_STAGES}) {t_kernel:.4f} ms ({nbytes / t_kernel / 1e9:.2f} "
+                     f"TB/s), general path (8x64 tiles) {t_general:.4f} ms; the wrapper's "
+                     f"eager call {t_call:.4f} ms; torch copy_ of x (the same bytes, no "
+                     f"stencil) {t_copy:.4f} ms; {smi}")
         phase(3, f"{name} bf16 {what}: N={n} {cin}->{ce} {h}x{w} k{k} s{s}: max err "
                  f"{err:.3g} ({in_top:.2f} ulp of max|y|), SE {se_err:.3g} of the largest "
                  f"(limit 1e-3); kernel {t_kernel:.4f} ms, plain "
@@ -362,6 +465,7 @@ def eager_modules(o, expand, cin, ce, k, s, dev):
 
 def reset_counts():
     cuda_nms.launches = fused_dw.launches = fused_mbconv.launches = 0
+    fused_dw.path_launches.update(dict.fromkeys(fused_dw.path_launches, 0))
     packed.launches.update(dict.fromkeys(packed.launches, 0))
 
 
@@ -377,7 +481,14 @@ def profile_serve(server, raw):
         for _ in range(2):
             server.serve(raw)
         torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    events = prof.key_averages()
+    print(events.table(sort_by="cuda_time_total", row_limit=25))
+    for name in ("soft_nms_kernel", "fused_dw_rows_kernel", "fused_dw_kernel", "sum_partials",
+                 "expand_dw_tc_kernel"):
+        rows = [e for e in events if name in e.key and e.device_time_total > 0]
+        total = sum(e.device_time_total for e in rows) / 1e3
+        calls = sum(e.count for e in rows)
+        print(f"[profile] {name}: {total:.4f} ms of device time in 2 serves, {calls} launches")
 
 
 class HostMasks(ChannelDropout):
@@ -464,7 +575,9 @@ def main():
     phase(2, f"built csrc/{{{','.join(SOURCES)}}}.cu in {time.perf_counter() - t0:.2f} s "
              f"(one nvcc each, in parallel)")
     for name in SOURCES:
-        ptxas_summary(name)
+        spilled = ptxas_summary(name)
+        if spilled and name in ("soft_nms", "fused_dw"):
+            raise AssertionError(f"csrc/{name}.cu: {spilled} spill registers")
     for name in ("packed_pointwise", "fused_expand_dw"):
         mma = tensor_core_instructions(name)
         phase(2, f"{name}: {mma} tensor-core instructions (HMMA/HGMMA) in its SASS")
@@ -473,34 +586,7 @@ def main():
 
     # -- 3. kernels vs plain ---------------------------------------------------
     rng = np.random.RandomState(0)
-    max_err, times, picks = 0.0, {}, {}
-    for sigma, tied in ((0.5, False), (0.0, False), (0.5, True)):
-        boxes, scores = random_boxes(rng, BATCH, N_CAND, tied)
-        b = torch.from_numpy(boxes).to(dev)
-        s = torch.from_numpy(scores).to(dev)
-        thr = 0.001 if sigma > 0 else float("-inf")
-        want = nms.batched_soft_nms(b, s, K, 0.5, thr, sigma)
-        got = cuda_nms.soft_nms_cuda(b, s, K, 0.5, thr, sigma)
-        torch.cuda.synchronize()
-        vlen = want.valid_len.cpu()
-        if not torch.equal(got.valid_len.cpu(), vlen):
-            raise AssertionError(f"valid_len {got.valid_len.tolist()} vs {vlen.tolist()}")
-        for i, n in enumerate(vlen.tolist()):
-            if not torch.equal(got.indices[i, :n], want.indices[i, :n]):
-                raise AssertionError(f"sigma={sigma} tied={tied} image {i}: picks differ")
-            max_err = max(max_err, float((got.scores[i, :n] - want.scores[i, :n]).abs().max()))
-        if max_err > 1e-6:
-            raise AssertionError(f"kernel scores differ from the plain version by {max_err}")
-        mode = ("gaussian" if sigma > 0 else "hard") + (" tied" if tied else "")
-        if not tied:
-            picks[mode] = sum(vlen.tolist())
-            times[mode] = (cuda_median_ms(lambda: cuda_nms.soft_nms_cuda(b, s, K, 0.5, thr, sigma)),
-                           cuda_median_ms(lambda: nms.batched_soft_nms(b, s, K, 0.5, thr, sigma)))
-            extra = f"kernel {times[mode][0]:.4f} ms, plain {times[mode][1]:.4f} ms (median of 25)"
-        else:
-            extra = "ties broken alike"
-        phase(3, f"soft-NMS {mode} B={BATCH} N={N_CAND} K={K}: valid_len "
-                 f"{vlen.tolist()} equal, indices equal; {extra}; {smi}")
+    max_err, times, picks = check_soft_nms(dev, rng, smi)
     f32_err = check_fused_f32(dev, rng)
     bf16_err, fused_times = check_fused_bf16(dev, rng, smi)
     torch.cuda.empty_cache()
@@ -523,6 +609,9 @@ def main():
     if launches != (SERVE_CALLS, 15 * SERVE_CALLS, SERVE_CALLS):
         raise AssertionError(f"(fused_dw, fused_expand_dw, soft_nms) launches {launches} in "
                              f"{SERVE_CALLS} serve calls; want 1, 15 and 1 a call")
+    if fused_dw.path_launches["fast"] != SERVE_CALLS:
+        raise AssertionError(f"fused_dw paths {fused_dw.path_launches} in {SERVE_CALLS} serve "
+                             f"calls; the MC prefix must take the fast path")
     shapes = [tuple(t.shape) for t in out]
     if shapes != [(BATCH, K, 12), (BATCH, K), (BATCH, K, 9), (BATCH,)]:
         raise AssertionError(f"packed shapes {shapes}")
@@ -532,7 +621,8 @@ def main():
         raise AssertionError("no detections at full width")
     ms = statistics.median(walls[1:]) * 1e3
     phase(4, f"d0 1024x512 T=10 B={BATCH} bf16: packed {shapes}, valid_len "
-             f"{out[3].tolist()}; launches in {SERVE_CALLS} calls: fused_dw {launches[0]}, "
+             f"{out[3].tolist()}; launches in {SERVE_CALLS} calls: fused_dw {launches[0]} "
+             f"(fast path {fused_dw.path_launches['fast']}), "
              f"fused_expand_dw {launches[1]}, soft_nms {launches[2]}; {ms:.1f} ms/batch "
              f"({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}, first "
              f"{walls[0] * 1e3:.0f} ms), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
@@ -561,11 +651,13 @@ def main():
             reset_counts()
             outs.append(d.serve_preprocessed(images))
             want = (0, 0, 0) if device == "cpu" else (1, 15, 1)
-            if counts() != want:
+            if counts() != want or fused_dw.path_launches["fast"] != want[0]:
                 raise AssertionError(f"{path} on {device}: (fused_dw, fused_expand_dw, "
-                                     f"soft_nms) launches {counts()}, want {want}")
+                                     f"soft_nms) launches {counts()}, want {want}; fused_dw "
+                                     f"paths {fused_dw.path_launches}")
         worst = matched_sets(outs[1], outs[0], f"{path}: cuda vs cpu")
-        phase(5, f"128x128 f32 {path}: card (kernels, launches 1/15/1) and CPU (plain) "
+        phase(5, f"128x128 f32 {path}: card (kernels, launches 1/15/1, fused_dw on its fast "
+                 f"path) and CPU (plain) "
                  f"detections agree as matched sets, valid_len {outs[0][3].tolist()}, max "
                  f"score diff {worst:.2e}")
 

@@ -70,6 +70,53 @@ def test_kernel_matches_plain_on_the_card(cuda, sigma, tied, n, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("n", [1, 37, 4999, 5000, 8192])
+@pytest.mark.parametrize("mode", ["gaussian", "hard", "tied"])
+def test_cluster_kernel_matches_plain(cuda, b, n, mode):
+    """The cluster of blocks an image gives the plain version's picks
+    (equal valid_len and indices, scores within 1e-6), and a second launch
+    gives the same picks bit for bit: from one candidate (blocks with empty
+    shards) to the largest N, one to 16 images."""
+    boxes, scores = random_batch(20 + n, n, b=b, tied=mode == "tied")
+    sigma = 0.0 if mode == "hard" else 0.5
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    thr = score_threshold(sigma)
+    want = nms.batched_soft_nms(bt, st, 100, 0.5, thr, sigma)
+    runs = [cuda_nms.soft_nms_cuda(bt, st, 100, 0.5, thr, sigma) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert_same_picks(runs[0], want.indices.cpu().numpy(), want.scores.cpu().numpy(),
+                      want.valid_len.cpu().numpy())
+    for g, w in zip(runs[1], runs[0]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cluster_kernel_breaks_ties_across_shards(cuda):
+    """Equal top scores at the edges of different blocks' shards (the last
+    candidate of shard 0, the first of the last shard, one inside shard 1),
+    and an equal runner-up pair across shards, on boxes that do not overlap:
+    the picks go to the lowest index first, as in the plain version."""
+    n = 5000
+    boxes, scores = random_batch(31, n, b=2)
+    scores = scores * 0.5
+    spans = cuda_nms.shards(n)
+    top = [spans[0][1] - 1, spans[-1][0], spans[1][0] + 5]
+    runner = [spans[-1][1] - 1, spans[1][0]]
+    for i, j in enumerate(top + runner):
+        boxes[:, j] = [1000.0 * (i + 1), 0.0, 1000.0 * (i + 1) + 10.0, 10.0]
+    scores[:, top] = 0.9
+    scores[:, runner] = 0.8
+    bt, st = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    want = nms.batched_soft_nms(bt, st, 20, 0.5, 0.001, 0.5)
+    got = cuda_nms.soft_nms_cuda(bt, st, 20, 0.5, 0.001, 0.5)
+    torch.cuda.synchronize()
+    assert got.indices[0, :5].tolist() == sorted(top) + sorted(runner)
+    assert_same_picks(got, want.indices.cpu().numpy(), want.scores.cpu().numpy(),
+                      want.valid_len.cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_more_candidates_than_it_holds(cuda):
     n = cuda_nms.MAX_CANDIDATES + 1
     with pytest.raises(ValueError, match="at most"):
@@ -127,6 +174,114 @@ def test_fused_dw_kernel_matches_plain_f32(no_tf32, k, s, act, masked, mean):
     for g, w in zip(got if mean else [got], want if mean else [want]):
         assert g.shape == w.shape and g.dtype == w.dtype
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def launched_path(path, fn):
+    """fn's result, after checking that it launched the fused depthwise
+    kernel once, on ``path``."""
+    before = dict(fused_dw.path_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    after = dict(fused_dw.path_launches)
+    assert after[path] == before[path] + 1 and sum(after.values()) == sum(before.values()) + 1
+    return out
+
+
+def assert_means_close(got, want):
+    """SE means within 1e-3 of the largest."""
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fast", "general"])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
+@pytest.mark.parametrize("masked,mean", [(True, True), (False, False), (True, False),
+                                         (False, True)])
+def test_fused_dw_paths_match_plain_f32(no_tf32, path, k, s, masked, mean):
+    """Both paths at W = 64 (rows of whole 16-byte groups), 19 rows (a
+    ragged last band) and 11 channels: f32 within 1e-5, means within 1e-3
+    of the largest."""
+    x, taps, scale, bias, mask = dw_operands(21, 2, 11, 19, 64, k, no_tf32)
+    mask = mask if masked else None
+    want = fused_dw.fused_depthwise_plain(x, taps, scale, bias, mask, s, "swish", mean)
+    got = launched_path(path, lambda: fused_dw.fused_depthwise_cuda(
+        x, taps, scale, bias, mask, s, "swish", mean, path))
+    if mean:
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+        assert_means_close(got[1], want[1])
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fast", "general"])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
+@pytest.mark.parametrize("masked,mean", [(True, True), (False, False)])
+def test_fused_dw_paths_match_plain_bf16(cuda, path, k, s, masked, mean):
+    """Both paths in bf16 at 33 x 40: within 1 bf16 ulp plus 1% of the top
+    ulp, means within 1e-3 of the largest."""
+    x, taps, scale, bias, mask = dw_operands(22, 3, 16, 33, 40, k, cuda, torch.bfloat16)
+    mask = mask if masked else None
+    want = fused_dw.fused_depthwise_plain(x, taps, scale, bias, mask, s, "swish", mean)
+    got = launched_path(path, lambda: fused_dw.fused_depthwise_cuda(
+        x, taps, scale, bias, mask, s, "swish", mean, path))
+    if mean:
+        assert_bf16_close(got[0], want[0], 1, 0.01)
+        assert_means_close(got[1], want[1])
+    else:
+        assert_bf16_close(got, want, 1, 0.01)
+
+
+@pytest.mark.cuda
+def test_fused_dw_mc_prefix_takes_the_fast_path(cuda):
+    """The MC prefix's shape (8 x 32 x 256 x 512 bf16, k3 s1, with the
+    mean) goes to the fast path by default and holds its tolerances."""
+    x, taps, scale, bias, _ = dw_operands(23, 8, 32, 256, 512, 3, cuda, torch.bfloat16)
+    want = fused_dw.fused_depthwise_plain(x, taps, scale, bias, None, 1, "swish", True)
+    got = launched_path("fast", lambda: fused_dw.fused_depthwise(x, taps, scale, bias, None, 1,
+                                                                 "swish", True))
+    assert_bf16_close(got[0], want[0], 1, 0.01)
+    assert_means_close(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_fused_dw_general_path_takes_what_the_fast_path_does_not(cuda):
+    """Rows that are not whole 16-byte groups (W = 70 in f32, W = 20 in
+    bf16), a view 2 bytes off an aligned address and a band that does not
+    fit the ring (f32, k5 s2, W = 2048) go to the general path, which holds
+    the tolerances; asking for the fast path there raises."""
+    cases = [dw_operands(24, 2, 5, 9, 70, 3, cuda), dw_operands(25, 2, 5, 9, 20, 3, cuda,
+                                                                torch.bfloat16),
+             dw_operands(26, 1, 3, 9, 2048, 5, cuda)]
+    base = torch.empty(2 * 5 * 9 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    view = base[1:].view(2, 5, 9, 64)
+    view.copy_(dw_operands(27, 2, 5, 9, 64, 3, cuda, torch.bfloat16)[0])
+    assert view.data_ptr() % 16 != 0
+    cases.append((view,) + cases[1][1:])
+    for (x, taps, scale, bias, mask), s in zip(cases, (1, 1, 2, 1)):
+        want = fused_dw.fused_depthwise_plain(x, taps, scale, bias, mask, s, "swish", True)
+        got = launched_path("general", lambda: fused_dw.fused_depthwise(
+            x, taps, scale, bias, mask, s, "swish", True))
+        if x.dtype == torch.bfloat16:
+            assert_bf16_close(got[0], want[0], 1, 0.01)
+        else:
+            torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5)
+        assert_means_close(got[1], want[1])
+        with pytest.raises(ValueError, match="fast path"):
+            fused_dw.fused_depthwise_cuda(x, taps, scale, bias, mask, s, path="fast")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
+def test_fused_dw_planner_counts_the_kernels_shared_memory(cuda, k, s):
+    """The band planner's ring model equals the source's count at every
+    band height, for bf16 and f32 rows of the widths d0 and the tests use."""
+    for itemsize in (2, 4):
+        for w in (40, 64, 256, 512, 1024):
+            _, _, iwx = fused_dw.row_window(w, k, s, itemsize)
+            for th in fused_dw.ROW_BANDS:
+                assert (fused_dw.kernel_row_smem_bytes(itemsize == 2, th, iwx, k, s)
+                        == fused_dw.row_smem_bytes(th, iwx, k, s, itemsize))
 
 
 @pytest.mark.cuda

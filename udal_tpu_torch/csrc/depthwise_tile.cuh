@@ -1,7 +1,7 @@
 // Shared pieces of the fused depthwise kernels (fused_dw.cu and
-// fused_expand_dw.cu): conversions, the activations, the depthwise stencil
-// with its epilogue over a tile staged in shared memory, and the
-// deterministic reduction of the per-tile SE partial sums.
+// fused_expand_dw.cu): conversions, the activations, the depthwise
+// stencils with their epilogues over a tile staged in shared memory, and
+// the deterministic reduction of the per-tile SE partial sums.
 //
 // Layout is the port's NCHW. A block owns one image n, one tile of TH x TW
 // output pixels and one tile of CT channels. Its input tile
@@ -231,6 +231,63 @@ __device__ __forceinline__ void depthwise_cols_epilogue(
       if (lane == 0) partial[static_cast<size_t>(pos.tile) * N * C + pos.n * C + c] = sum;
     }
   }
+}
+
+// Two neighbouring output values of a row, rounded to T, stored as one
+// vector (float2, or bf16x2 rounded to nearest even): p is 8- or 4-byte
+// aligned.
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The column-segment stencil of depthwise_cols_epilogue for any staged type
+// and with the BN scale: one lane forms kSeg outputs down each of two
+// neighbouring output columns (q, q + 1). `src` is the staged value under
+// tap (0, 0) of output (r0, q), `row` the staged row stride; the lane loads
+// each staged value the two columns' windows cover ((kSeg-1)*S+K rows of
+// S+K columns) once into registers. It stores v = act(acc * scale + bias)
+// * mask of the first `rows` rows as pairs to `dst` (output (r0, q), row
+// stride Wo; q and Wo even) and returns the f32 sum of the stored values.
+// The activation is the exact one (activate, specialised to A when A is not
+// kAnyAct), as v also goes into the f32 SE mean.
+template <typename T, int A, int K, int S, int kSeg>
+__device__ __forceinline__ float depthwise_pair_cols(const T* __restrict__ src, int row,
+                                                     const float (&w)[K * K], float sc, float bi,
+                                                     float mk, int act, T* __restrict__ dst,
+                                                     int Wo, int rows) {
+  constexpr int kSpan = (kSeg - 1) * S + K;
+  float acc[2][kSeg];
+#pragma unroll
+  for (int o = 0; o < kSeg; ++o) acc[0][o] = acc[1][o] = 0.f;
+#pragma unroll
+  for (int c = 0; c < S + K; ++c) {
+    float v[kSpan];
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i) v[i] = to_float(src[i * row + c]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int dx = c - h * S;  // the tap of column q + h this staged column meets
+      if (dx < 0 || dx >= K) continue;
+#pragma unroll
+      for (int o = 0; o < kSeg; ++o)
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) acc[h][o] += v[o * S + dy] * w[dy * K + dx];
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int o = 0; o < kSeg; ++o) {
+    const float a = activate(acc[0][o] * sc + bi, A == kAnyAct ? act : A) * mk;
+    const float b = activate(acc[1][o] * sc + bi, A == kAnyAct ? act : A) * mk;
+    if (o < rows) {
+      store_pair(dst + static_cast<size_t>(o) * Wo, a, b);
+      sum += a + b;
+    }
+  }
+  return sum;
 }
 
 // out[i] = (sum over t of partial[t][i], in order t = 0, 1, ...) / div

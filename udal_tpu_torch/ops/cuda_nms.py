@@ -2,27 +2,57 @@
 
 Replaces the TPU kernel ``udal_tpu/ops/pallas_nms.py:_nms_kernel`` (wrapped
 there by ``pallas_soft_nms`` / ``batched_pallas_soft_nms``). The kernel runs
-one 1024-thread block per image and keeps the candidates on chip for all K
-picks; it is bound by latency (K dependent block-wide argmax reductions),
-not by bytes. See the source for the design.
+one thread-block cluster of ``CLUSTER`` blocks per image: the image's
+candidates are split into contiguous shards, one per block, one candidate
+a thread, and each of the K picks is a block-local argmax whose winner
+every block pushes into every block's shared memory, then the same
+reduction of those winners in every block. It is bound by the latency of
+the K dependent picks, not by bytes. See the source for the design.
 
-``batched_soft_nms`` takes the plain version (``ops/nms.py``) for tensors
-on the CPU. For CUDA tensors it launches the kernel or raises; it never
-falls back. ``launches`` counts kernel launches.
+``plan`` gives the shards and threads of a launch; a launch the card
+refuses raises. ``batched_soft_nms`` takes the plain version
+(``ops/nms.py``) for tensors on the CPU. For CUDA tensors it launches the
+kernel or raises; it never falls back. ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from udal_tpu_torch.ops import nms as nms_lib
 from udal_tpu_torch.ops._build import load_library
 
-MAX_CANDIDATES = 8 * 1024   # 8 candidates a thread in the 1024-thread block
+CLUSTER = 8                    # blocks a cluster (kCluster in the source; see PERF.md)
+MAX_THREADS = 1024             # threads a block, one candidate each (kMaxThreads)
+MAX_CANDIDATES = CLUSTER * MAX_THREADS   # 8192
 launches = 0
+
+
+class NMSPlan(NamedTuple):
+    shard: int     # candidates a block owns: [r * shard, min((r + 1) * shard, n))
+    threads: int   # threads a block: whole warps, one candidate each
+
+
+def plan(n: int) -> NMSPlan:
+    """The launch of ``n`` candidates an image: the shard of each of the
+    cluster's blocks and the threads a block, as the source computes them."""
+    if not 1 <= n <= MAX_CANDIDATES:
+        raise ValueError(f"the soft-NMS kernel takes 1 to at most {MAX_CANDIDATES} "
+                         f"candidates an image, got {n}")
+    shard = -(-n // CLUSTER)
+    return NMSPlan(shard, (shard + 31) // 32 * 32)
+
+
+def shards(n: int) -> List[Tuple[int, int]]:
+    """The [start, stop) of the candidates each block of the cluster owns
+    (empty past n)."""
+    shard = plan(n).shard
+    return [(min(n, r * shard), min(n, (r + 1) * shard)) for r in range(CLUSTER)]
 
 
 @functools.cache
@@ -49,18 +79,18 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor, max_output_size: int) -> N
         raise ValueError("soft-NMS takes contiguous boxes and scores")
 
 
-def soft_nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, max_output_size: int,
-                  iou_threshold: float, score_threshold: float,
-                  sigma: float) -> nms_lib.NMSResult:
-    """Launch the kernel on CUDA tensors (checked), then pack the picks."""
+def launch_picks(boxes: torch.Tensor, scores: torch.Tensor, max_output_size: int,
+                 iou_threshold: float, score_threshold: float,
+                 sigma: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors (checked): the K picks unpacked,
+    (indices [B, K] int32, scores [B, K] f32), as ``greedy_picks`` makes
+    them."""
     global launches
     _check(boxes, scores, max_output_size)
     if boxes.device.type != "cuda":
         raise ValueError(f"the soft-NMS kernel takes CUDA tensors, got {boxes.device}")
     b, n, _ = boxes.shape
-    if n > MAX_CANDIDATES:
-        raise ValueError(f"the soft-NMS kernel takes at most {MAX_CANDIDATES} "
-                         f"candidates an image, got {n}")
+    plan(n)
     idx = torch.empty((b, max_output_size), dtype=torch.int32, device=boxes.device)
     sel = torch.empty((b, max_output_size), dtype=torch.float32, device=boxes.device)
     with torch.cuda.device(boxes.device):
@@ -69,9 +99,19 @@ def soft_nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, max_output_size: in
                         score_threshold, sigma,
                         torch.cuda.current_stream(boxes.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"soft-NMS kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"soft-NMS kernel launch (clusters of {CLUSTER} blocks) failed "
+                           f"with CUDA error {err}")
     launches += 1
-    return nms_lib.pack_picks(idx, sel, n, score_threshold)
+    return idx, sel
+
+
+def soft_nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, max_output_size: int,
+                  iou_threshold: float, score_threshold: float,
+                  sigma: float) -> nms_lib.NMSResult:
+    """``launch_picks``, then pack the picks."""
+    idx, sel = launch_picks(boxes, scores, max_output_size, iou_threshold, score_threshold,
+                            sigma)
+    return nms_lib.pack_picks(idx, sel, boxes.shape[1], score_threshold)
 
 
 def batched_soft_nms(boxes: torch.Tensor, scores: torch.Tensor,

@@ -10,14 +10,22 @@ the port's NCHW (the TPU's C % 128 lane rule is gone):
 computed in f32 and rounded to x's type, with the f32 spatial mean of y
 per (n, c) when asked (the squeeze-excite input). ``fused_depthwise`` takes
 the plain version for CPU tensors; for CUDA tensors it launches the kernel
-or raises, and never falls back. ``launches`` counts kernel launches.
+or raises, and never falls back.
+
+The kernel has two paths. The fast path (``row_plan``) takes x whose rows
+are whole 16-byte groups (W · itemsize a multiple of 16, x 16-byte
+aligned) and whose band of 8 output rows fits its shared-memory ring: bands
+of whole rows, each image row one TMA bulk copy, through a persistent ring,
+y stored as pairs. Every other shape takes the general path, the first
+design's tiles. ``launches`` counts kernel launches, ``path_launches`` each
+path's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +39,15 @@ __all__ = ["ACTS", "fold_bn", "fused_depthwise", "fused_depthwise_plain", "same_
 ACTS = {"swish": 0, "silu": 0, "swish_native": 0, "relu": 1, "relu6": 2, "identity": 3,
         "hswish": 4, "mish": 5}
 KERNEL_TYPES = (torch.float32, torch.bfloat16)
-TILE_OUTPUTS = 512      # output pixels a block covers
-TILE_CHANNELS = 8       # channels a block covers (one warp each)
+TILE_OUTPUTS = 512      # general path: output pixels a block covers
+TILE_CHANNELS = 8       # general path: channels a block covers (one warp each)
+# fast path: the source's kStages and kSeg; the band heights the planner
+# tries, in order; the ring's budget (two blocks an SM)
+ROW_STAGES, ROW_SEG = 3, 8
+ROW_BANDS = (16, 8)
+ROW_SMEM_BUDGET = 112 * 1024
 launches = 0
+path_launches = {"fast": 0, "general": 0}
 
 DepthwiseOut = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -54,6 +68,47 @@ def spatial_tile(ho: int, wo: int) -> Tuple[int, int]:
     ``TILE_OUTPUTS`` pixels."""
     tw = min(wo, 64)
     return max(1, min(ho, TILE_OUTPUTS // tw)), tw
+
+
+class RowPlan(NamedTuple):
+    th: int    # output rows a band (tile) covers, a multiple of ROW_SEG
+    gwa: int   # image column of staged column 0: a multiple of 16 bytes' values, <= -pad_l
+    off: int   # staged column of output column 0's first tap: -pad_l - gwa
+    iwx: int   # staged columns a row: whole 16-byte groups
+
+
+def row_window(w: int, k: int, stride: int, itemsize: int) -> Tuple[int, int, int]:
+    """The fast path's staged columns (gwa, off, iwx): the columns output
+    columns [0, Wo) read under TF SAME, widened to whole 16-byte groups."""
+    v = 16 // itemsize
+    pad_l = same_pads(w, k, stride)[0]
+    gwa = -(-pad_l // v) * v
+    off = gwa - pad_l
+    wo = -(-w // stride)
+    return -gwa, off, -(-(off + (wo - 1) * stride + k) // v) * v
+
+
+def row_smem_bytes(th: int, iwx: int, k: int, stride: int, itemsize: int) -> int:
+    """Dynamic shared memory of a fast-path block (``rows_smem_bytes`` in
+    the source): ROW_STAGES stages of (th-1)·s+k staged rows of iwx values."""
+    return ROW_STAGES * ((th - 1) * stride + k) * iwx * itemsize
+
+
+def row_plan(h: int, w: int, k: int, stride: int, itemsize: int) -> Optional[RowPlan]:
+    """The fast path's plan for [.., H, W] x, or None where it does not
+    take the shape (rows not whole 16-byte groups, or no band of ROW_SEG
+    rows fits ROW_SMEM_BUDGET). The band: the first of ROW_BANDS whose ring
+    fits the budget and that the output rows, rounded up to ROW_SEG, fill
+    (a band of 8 rows for images of at most 8 output rows)."""
+    if w * itemsize % 16:
+        return None
+    ho = output_size(h, w, stride)[0]
+    gwa, off, iwx = row_window(w, k, stride, itemsize)
+    cap = max(ROW_SEG, -(-ho // ROW_SEG) * ROW_SEG)
+    for th in ROW_BANDS:
+        if th <= cap and row_smem_bytes(th, iwx, k, stride, itemsize) <= ROW_SMEM_BUDGET:
+            return RowPlan(th, gwa, off, iwx)
+    return None
 
 
 def check_operands(x: torch.Tensor, params, masks, c: int) -> None:
@@ -119,39 +174,84 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _rows_kernel():
+    fn = load_library("fused_dw").udal_fused_dw_rows
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def kernel_row_smem_bytes(bf16: bool, th: int, iwx: int, k: int, stride: int) -> int:
+    """The source's count of a fast-path block's dynamic shared memory."""
+    fn = load_library("fused_dw").udal_fused_dw_rows_smem
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn(int(bf16), th, iwx, k, stride)
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
 def fused_depthwise_cuda(x: torch.Tensor, taps: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                         stride: int = 1, act: str = "swish",
-                         want_mean: bool = False) -> DepthwiseOut:
-    """Launch ``csrc/fused_dw.cu`` on CUDA tensors (checked)."""
+                         stride: int = 1, act: str = "swish", want_mean: bool = False,
+                         path: Optional[str] = None) -> DepthwiseOut:
+    """Launch ``csrc/fused_dw.cu`` on CUDA tensors (checked): the fast path
+    where ``row_plan`` takes the shape and x is 16-byte aligned, else the
+    general path. ``path`` ("fast" or "general") asks for one; "fast" raises
+    where it does not take the shape."""
     global launches
     _check(x, taps, scale, bias, mask, stride, act)
     if x.device.type != "cuda":
         raise ValueError(f"the fused depthwise kernel takes CUDA tensors, got {x.device}")
+    if path not in (None, "fast", "general"):
+        raise ValueError(f"path is 'fast', 'general' or None, got {path!r}")
     n, c, h, w = x.shape
     k = taps.shape[-1]
     ho, wo = output_size(h, w, stride)
-    th, tw = spatial_tile(ho, wo)
+    bf16 = x.dtype == torch.bfloat16
+    rows = row_plan(h, w, k, stride, x.element_size()) if x.data_ptr() % 16 == 0 else None
+    if path == "fast" and rows is None:
+        raise ValueError(f"the fast path takes rows of whole 16-byte groups from a 16-byte "
+                         f"aligned x whose band fits its ring, got {tuple(x.shape)} "
+                         f"{x.dtype} at k={k}, stride={stride}")
+    fast = rows is not None and path != "general"
+    if fast:
+        planned = row_smem_bytes(rows.th, rows.iwx, k, stride, x.element_size())
+        counted = kernel_row_smem_bytes(bf16, rows.th, rows.iwx, k, stride)
+        if counted != planned:
+            raise RuntimeError(f"the band planner counts {planned} bytes of shared memory for "
+                               f"{rows}, the kernel {counted}")
+        tiles = -(-ho // rows.th)
+    else:
+        th, tw = spatial_tile(ho, wo)
+        tiles = -(-ho // th) * -(-wo // tw)
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
     partial = mean = None
     if want_mean:
-        tiles = -(-ho // th) * -(-wo // tw)
         partial = torch.empty((tiles, n, c), dtype=torch.float32, device=x.device)
         mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    pad_t = same_pads(h, k, stride)[0]
+    operands = (x.data_ptr(), taps.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(mask),
+                y.data_ptr(), _ptr(partial), _ptr(mean), int(bf16), n, c, h, w, k, stride, ho, wo,
+                pad_t)
     with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), taps.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                        _ptr(mask), y.data_ptr(), _ptr(partial), _ptr(mean),
-                        int(x.dtype == torch.bfloat16), n, c, h, w, k, stride, ho, wo,
-                        same_pads(h, k, stride)[0], same_pads(w, k, stride)[0], th, tw,
-                        TILE_CHANNELS, ACTS[act],
-                        torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if fast:
+            err = _rows_kernel()(*operands, rows.gwa, rows.off, rows.iwx, rows.th, ACTS[act],
+                                 stream)
+        else:
+            err = _kernel()(*operands, same_pads(w, k, stride)[0], th, tw, TILE_CHANNELS,
+                            ACTS[act], stream)
+    which = "fast" if fast else "general"
     if err != 0:
-        raise RuntimeError(f"fused depthwise kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"fused depthwise kernel launch ({which} path) failed with CUDA "
+                           f"error {err}")
     launches += 1
+    path_launches[which] += 1
     return (y, mean) if want_mean else y
 
 
