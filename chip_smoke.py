@@ -19,7 +19,9 @@ exit code:
      hard, random and tied scores: equal valid_len, equal indices over it,
      scores within 1e-6; the cluster size it launches with (blocks an
      image), its time, and the latency of one pick ((time at K - time at
-     K=1) / (K-1), the dependency floor of the K picks).
+     K=1) / (K-1), the dependency floor of the K picks). Then the same
+     check on per-class operands (gaussian and hard): boxes shifted by
+     class ids in [0, 10) times 2·1024, as ``per_class_nms`` shifts them.
    - fused depthwise and fused expand + depthwise in f32 at N=8, every
      (k, s) in {3,5}x{1,2}: the depthwise on its fast and its general path
      with act swish and identity, with and without mask and mean; the
@@ -47,13 +49,19 @@ exit code:
    depthwise kernel once (the MC prefix, on its fast path), the fused
    expand + depthwise
    kernel 15 times (blocks 1-15) and the NMS kernel once. With
-   ``--profile``, a torch.profiler operator split of two serves follows.
+   ``--profile``, a torch.profiler operator split of two serves follows
+   (and of each phase-7 path), with the card's busy time a call against
+   the call's unprofiled host time.
 5. device parity: the same weights (numpy from a seed, through
    ``convert.py``) at 128x128 in f32 served on the CPU (plain versions) and
    on the card (kernels) with the same dropout masks, on the MC fold path,
-   the MC path without the fold (block 0 masked at T*B) and the
-   deterministic path; detections agree as matched sets, and the kernels
-   ran on the card only (the depthwise on its fast path).
+   the MC path without the fold (block 0 masked at T*B), the
+   deterministic path, head-only MC (``serve_preprocessed``, and
+   ``serve_detections_preprocessed_uint8`` from native-size uint8 frames
+   with warp parameters), ``EfficientDetModel`` with per-class NMS and a
+   2-member ensemble; detections agree as matched sets, and the kernels
+   ran on the card only (the depthwise on its fast path), as many times as
+   each path launches them.
 6. the packed-layout microbench (``udal_tpu_torch.tools.perf_packed``, the
    port of ``tools/perf_packed.py``): ``check`` at the tool's shapes (the
    script's references; each of the five kernels against its plain
@@ -63,6 +71,22 @@ exit code:
    tool's CUDA-graph replays (device time: B6 and B7 run for less time than
    their wrappers take on the host). Then B6, B7 and ``x + 1`` in 5 rounds
    of 20 graph replays each, in turns: the median and spread of each.
+7. the repo's own inference configurations at full width (bf16, batch 8,
+   random weights from a seed, 4 calls a path, medians of calls 2-4, the
+   launch counts set to 0 before each path and read after it):
+   - KITTI (``configs/train/allclasses_mcdropout_lossatt_head.yaml``:
+     7 classes, head-only MC T=10, softmax logits) through
+     ``serve_detections_preprocessed_uint8`` from native 375x1242 uint8
+     frames with the device-resize reader's warp parameters: 1/15/1
+     launches a call, the shapes, finite values, detections; ms/batch,
+     img/s, peak memory, the device time of the warp + uint8 prep alone,
+     and ``ServingDriver.benchmark``'s result;
+   - BASELINE config #3: a 5-member ensemble at the overrides of
+     ``configs/train/allclasses_lossatt_BDD.yaml`` (10 classes) serving
+     [8, 512, 1024, 3] uint8: 5/75/1 launches a call;
+   - ``EfficientDetModel(post_mode="per_class")`` at the KITTI
+     configuration: one soft-NMS launch a call.
+   Then the script's total time.
 
 The line before the last is a JSON summary of the kernels: each with its
 launches on the main path (phase 4, or phase 6's timed cases for the
@@ -90,9 +114,10 @@ import numpy as np
 import torch
 
 from udal_tpu_torch.apps.serving import ServingDriver
-from udal_tpu_torch.config import get_detection_config
+from udal_tpu_torch.config import get_detection_config, parse_image_size
 from udal_tpu_torch.convert import flax_to_torch, torch_to_flax
-from udal_tpu_torch.models.efficientdet import EfficientDetNet
+from udal_tpu_torch.models.efficientdet import EfficientDetModel, EfficientDetNet, init_flax_style
+from udal_tpu_torch.models.ensemble import init_ensemble, stack_variables
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
                                                 activation_fn, backbone_spec,
                                                 block_input_sizes)
@@ -101,6 +126,20 @@ from udal_tpu_torch.tools import perf_packed
 
 MAIN_PATH = dict(image_size="1024x512", num_classes=8, loss_attenuation=True,
                  mc_dropout=True, mc_dropoutrate=0.05, mc_dropoutsamp=10)
+# phase 7: the repo's own inference configurations. The card has no yaml, so
+# each file's overrides are carried here as they stand in it
+# (tests/test_torch_config.py holds them against the files).
+KITTI_HEAD = ("configs/train/allclasses_mcdropout_lossatt_head.yaml", dict(
+    num_classes=7, image_size="1024x512", moving_average_decay=0, mixed_precision=True,
+    map_freq=20, label_map="kitti", save_freq=20, enable_softmax=True, mc_dropout=True,
+    mc_boxheadrate=0.05, mc_classheadrate=0.05, loss_attenuation=True, box_loss_weight=100.0,
+    boxloss_type="MSE"))
+BDD = ("configs/train/allclasses_lossatt_BDD.yaml", dict(
+    num_classes=10, image_size="1024x512", moving_average_decay=0, mixed_precision=True,
+    map_freq=20, label_map="bdd", save_freq=20, enable_softmax=True, loss_attenuation=True,
+    box_loss_weight=100.0, boxloss_type="MSE"))
+KITTI_NATIVE = (375, 1242)     # a KITTI frame's native size
+ENSEMBLE_MEMBERS = 5           # BASELINE config #3
 BATCH, N_CAND, K = 8, 5000, 100
 SERVE_CALLS = 4
 SOURCES = ("soft_nms", "fused_dw", "fused_expand_dw", "packed_pointwise", "packed_lane")
@@ -344,6 +383,39 @@ def check_soft_nms(dev, rng, smi):
     return max_err, times, picks
 
 
+def check_per_class_nms(dev, rng, smi):
+    """Phase 3, per-class soft-NMS operands: boxes as ``random_boxes``
+    shifted by class ids in [0, 10) times 2·1024, as ``per_class_nms``
+    shifts them at 1024x512. Returns the largest score error."""
+    max_err = 0.0
+    for sigma in (0.5, 0.0):
+        boxes, scores = random_boxes(rng, BATCH, N_CAND)
+        classes = rng.randint(0, 10, (BATCH, N_CAND, 1)).astype(np.float32)
+        b = torch.from_numpy(boxes + classes * 2.0 * 1024).to(dev)
+        s = torch.from_numpy(scores).to(dev)
+        thr = 0.001 if sigma > 0 else float("-inf")
+        mode = "gaussian" if sigma > 0 else "hard"
+        want = nms.batched_soft_nms(b, s, K, 0.5, thr, sigma)
+        got = cuda_nms.soft_nms_cuda(b, s, K, 0.5, thr, sigma)
+        vlen = want.valid_len.cpu()
+        if not torch.equal(got.valid_len.cpu(), vlen):
+            raise AssertionError(f"per-class {mode}: valid_len {got.valid_len.tolist()} vs "
+                                 f"{vlen.tolist()}")
+        for i, n in enumerate(vlen.tolist()):
+            if not torch.equal(got.indices[i, :n], want.indices[i, :n]):
+                raise AssertionError(f"per-class {mode} image {i}: picks differ")
+            max_err = max(max_err, float((got.scores[i, :n] - want.scores[i, :n]).abs().max()))
+        if max_err > 1e-6:
+            raise AssertionError(f"per-class kernel scores differ from the plain version by "
+                                 f"{max_err}")
+        t_kernel = graph_median_ms(lambda: cuda_nms.launch_picks(b, s, K, 0.5, thr, sigma))
+        phase(3, f"soft-NMS per-class {mode} B={BATCH} N={N_CAND} K={K}, boxes shifted by "
+                 f"class x 2048 (up to {float(b.max()):.0f} px): valid_len {vlen.tolist()} "
+                 f"equal, indices equal, scores within {max_err:.1e}; kernel {t_kernel:.4f} ms "
+                 f"(device time, 10 calls a CUDA graph); {smi}")
+    return max_err
+
+
 def check_fused_f32(dev, rng):
     """Phase 3, f32 at N=8 over every (k, s). Returns the largest errors."""
     worst = {"fused_dw": 0.0, "fused_expand_dw": 0.0}
@@ -473,13 +545,18 @@ def counts():
     return (fused_dw.launches, fused_mbconv.launches, cuda_nms.launches)
 
 
-def profile_serve(server, raw):
-    """torch.profiler over two serves: device time by operator."""
+def profile_calls(label, fn, wall_ms, calls=2):
+    """torch.profiler over ``calls`` calls of ``fn``: device time by
+    operator, the port's kernels' totals, and the device's busy time a call
+    (the union of the spans of its kernels and copies) against ``wall_ms``,
+    the unprofiled host time of a call: the rest is the share the card
+    idles."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            server.serve(raw)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     print(events.table(sort_by="cuda_time_total", row_limit=25))
@@ -487,8 +564,20 @@ def profile_serve(server, raw):
                  "expand_dw_tc_kernel"):
         rows = [e for e in events if name in e.key and e.device_time_total > 0]
         total = sum(e.device_time_total for e in rows) / 1e3
-        calls = sum(e.count for e in rows)
-        print(f"[profile] {name}: {total:.4f} ms of device time in 2 serves, {calls} launches")
+        print(f"[profile] {label} {name}: {total:.4f} ms of device time in {calls} calls, "
+              f"{sum(e.count for e in rows)} launches")
+    # the union of the kernels' and copies' spans on the device
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, reached = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reached:
+            busy += end - max(start, reached)
+            reached = end
+    busy /= 1e3 * calls
+    print(f"[profile] {label}: {busy:.3f} ms of device time a call against {wall_ms:.3f} ms "
+          f"a call on the host's clock (unprofiled): the card idles "
+          f"{max(0.0, 1 - busy / wall_ms) * 100:.1f}% of a call")
 
 
 class HostMasks(ChannelDropout):
@@ -554,7 +643,219 @@ def matched_sets(got, want, tag):
     return worst
 
 
+def phase5(dev):
+    """The same weights at 128x128 in f32, served on the CPU (plain
+    versions) and on the card (kernels), path by path: matched sets, and
+    the kernels launched on the card only."""
+    small = dict(image_size="128x128", num_classes=8, loss_attenuation=True,
+                 fpn_cell_repeats=1, box_class_repeats=1, mc_dropout=True,
+                 mc_dropoutrate=0.05, mc_dropoutsamp=3)
+    head_only = dict(mc_dropoutrate=0.0, mc_classheadrate=0.05, mc_boxheadrate=0.05,
+                     enable_softmax=True)
+    deterministic = {"mc_dropout": False, "mc_dropoutrate": 0.0}
+
+    def small_config(extra):
+        return get_detection_config("efficientdet-d0").override({**small, **extra},
+                                                                allow_new_keys=True)
+
+    config = small_config({})
+    params, stats = random_flax_variables(EfficientDetNet(config), seed=2)
+    state = flax_to_torch(params, stats)
+    state2 = flax_to_torch(*random_flax_variables(EfficientDetNet(config), seed=6))
+    images = np.random.RandomState(3).uniform(-2, 2, (2, 128, 128, 3)).astype(np.float32)
+    raw_small = np.random.RandomState(7).randint(0, 256, (2, 100, 160, 3)).astype(np.uint8)
+    native_small = np.random.RandomState(8).randint(0, 256, (2, 90, 150, 3)).astype(np.uint8)
+    scale = min(128 / 90, 128 / 150)
+    warp_small = dict(warp_scale=np.asarray([[int(90 * scale) / 90, int(150 * scale) / 150]] * 2,
+                                            np.float32),
+                      warp_offset=np.zeros((2, 2), np.float32),
+                      valid_hw=np.asarray([[int(90 * scale), int(150 * scale)]] * 2, np.int32),
+                      image_scales=np.full((2,), 1.0 / scale, np.float32))
+
+    def driver(extra, device, **kwargs):
+        d = ServingDriver(small_config(extra), kwargs.pop("state", state), dtype=torch.float32,
+                          device=device, **kwargs)
+        d.masks = HostMasks(torch.Generator().manual_seed(4))
+        return d
+
+    def per_class_model(device):
+        model = EfficientDetModel(small_config(deterministic))
+        model.load_state_dict(state)
+        model = model.to(device).eval()
+        model.backbone.prepare_inference()
+        with torch.inference_mode():
+            return model(torch.as_tensor(raw_small, device=device), post_mode="per_class")
+
+    paths = (
+        ("MC fold", (1, 15, 1), lambda d: driver({}, d).serve_preprocessed(images)),
+        ("MC without the fold", (1, 15, 1),
+         lambda d: driver({"mc_fast_fold": False}, d).serve_preprocessed(images)),
+        ("deterministic", (1, 15, 1), lambda d: driver(deterministic, d).serve_preprocessed(images)),
+        ("head-only MC", (1, 15, 1), lambda d: driver(head_only, d).serve_preprocessed(images)),
+        ("head-only MC, native uint8 + warp (serve_detections_preprocessed_uint8)", (1, 15, 1),
+         lambda d: driver(head_only, d).serve_detections_preprocessed_uint8(
+             native_small, **warp_small).packed()),
+        ("EfficientDetModel post_mode=per_class", (1, 15, 1), per_class_model),
+        ("2-member ensemble", (2, 30, 1),
+         lambda d: driver(deterministic, d, state=stack_variables([state, state2]),
+                          ensemble=True).serve_preprocessed(images)),
+    )
+    for path, want, run in paths:
+        outs = []
+        for device in ("cpu", dev):
+            reset_counts()
+            outs.append(run(device)[:4])
+            expect = (0, 0, 0) if device == "cpu" else want
+            if counts() != expect or fused_dw.path_launches["fast"] != expect[0]:
+                raise AssertionError(f"{path} on {device}: (fused_dw, fused_expand_dw, "
+                                     f"soft_nms) launches {counts()}, want {expect}; fused_dw "
+                                     f"paths {fused_dw.path_launches}")
+        worst = matched_sets(outs[1], outs[0], f"{path}: cuda vs cpu")
+        phase(5, f"128x128 f32 {path}: card (kernels, launches {'/'.join(map(str, want))}, "
+                 f"fused_dw on its fast path) and CPU (plain) detections agree as matched "
+                 f"sets, valid_len {outs[0][3].tolist()}, max score diff {worst:.2e}")
+    torch.cuda.empty_cache()
+
+
+def timed_calls(fn):
+    """``SERVE_CALLS`` calls of ``fn``, each ending in a synchronisation,
+    with the launch counts set to 0 before the first and the peak memory
+    reset. Returns (the last output, ms per call from the median of calls
+    2 to SERVE_CALLS, the first call's ms, the launches, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls = []
+    for _ in range(SERVE_CALLS):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (out, statistics.median(walls[1:]) * 1e3, walls[0] * 1e3, counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def assert_launches(what, launches, per_call):
+    """(fused_dw, fused_expand_dw, soft_nms) launches of SERVE_CALLS calls,
+    every fused_dw launch on its fast path."""
+    want = tuple(SERVE_CALLS * n for n in per_call)
+    if launches != want or fused_dw.path_launches["fast"] != want[0]:
+        raise AssertionError(f"{what}: (fused_dw, fused_expand_dw, soft_nms) launches "
+                             f"{launches} in {SERVE_CALLS} calls, want {per_call} a call; "
+                             f"fused_dw paths {fused_dw.path_launches}")
+
+
+def assert_detections(what, tensors, shapes):
+    got = [tuple(t.shape) for t in tensors]
+    if got != shapes:
+        raise AssertionError(f"{what}: shapes {got}, want {shapes}")
+    if not all(bool(torch.isfinite(t.float()).all()) for t in tensors):
+        raise AssertionError(f"{what}: non-finite outputs")
+
+
+def phase7(dev, smi, profiled=False):
+    """The repo's inference configurations at full width, bf16, batch 8,
+    random weights from a seed; with ``profiled``, a torch.profiler split
+    of each path after its timed calls."""
+    # 1. KITTI: head-only MC, native frames through the device-resize entry
+    path, overrides = KITTI_HEAD
+    server = ServingDriver.create("efficientdet-d0", overrides=overrides, batch_size=BATCH,
+                                  seed=0, device=dev)
+    cfg = server.config
+    h, w = KITTI_NATIVE
+    net_h, net_w = parse_image_size(cfg.image_size)
+    scale = min(net_h / h, net_w / w)
+    sh, sw = int(h * scale), int(w * scale)
+    frames = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (BATCH, h, w, 3))
+                              .astype(np.uint8))
+    warp = dict(valid_hw=torch.tensor([[sh, sw]] * BATCH, dtype=torch.int32),
+                image_scales=torch.full((BATCH,), 1.0 / scale),
+                warp_scale=torch.tensor([[sh / h, sw / w]] * BATCH),
+                warp_offset=torch.zeros((BATCH, 2)))
+    det, ms, first, launches, peak = timed_calls(
+        lambda: server.serve_detections_preprocessed_uint8(frames, **warp))
+    what = f"KITTI ({path}), head-only MC T={cfg.mc_dropoutsamp}"
+    assert_launches(what, launches, (1, 15, 1))
+    fast = fused_dw.path_launches["fast"]
+    c = cfg.num_classes
+    assert_detections(what, [det.boxes, det.sigma_al, det.sigma_mc, det.sigma_cls, det.logits],
+                      [(BATCH, K, 4)] * 3 + [(BATCH, K, c)] * 2)
+    if int(det.valid_len.max()) <= 0:
+        raise AssertionError(f"{what}: no detections")
+    dev_frames = frames.to(dev)
+    dev_warp = {k: v.to(dev) for k, v in warp.items()}
+    prep = graph_median_ms(lambda: server._dispatch_uint8(dev_frames, **dev_warp))
+    bench = server.benchmark(frames, warmup=1, iters=3)
+    phase(7, f"{what}: serve_detections_preprocessed_uint8 from native {h}x{w} uint8 frames "
+             f"(warp to {sh}x{sw} on the {net_h}x{net_w} canvas), B={BATCH} bf16: launches in "
+             f"{SERVE_CALLS} calls {launches} (fused_dw fast path {fast}); boxes, sigma_al, "
+             f"sigma_mc [{BATCH}, {K}, 4], "
+             f"sigma_cls, logits [{BATCH}, {K}, {c}], valid_len {det.valid_len.tolist()}; "
+             f"{ms:.1f} ms/batch ({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}, "
+             f"first {first:.0f} ms), peak {peak:.2f} GiB; warp + uint8 prep alone "
+             f"{prep:.4f} ms device time (10 calls a CUDA graph); ServingDriver.benchmark "
+             f"{json.dumps(bench)}; {smi}")
+    if profiled:
+        profile_calls("KITTI head-only serve",
+                      lambda: server.serve_detections_preprocessed_uint8(frames, **warp), ms)
+    del server, det
+    torch.cuda.empty_cache()
+
+    # 2. BASELINE config #3: a 5-member deep ensemble on BDD100K
+    path, overrides = BDD
+    cfg = get_detection_config("efficientdet-d0").override(overrides)
+    _, stacked = init_ensemble(cfg, ENSEMBLE_MEMBERS, seed=1)
+    server = ServingDriver(cfg, stacked, BATCH, device=dev, ensemble=True)
+    raw = np.random.RandomState(6).randint(0, 256, (BATCH, 512, 1024, 3)).astype(np.uint8)
+    out, ms, first, launches, peak = timed_calls(lambda: server.serve(raw))
+    what = f"BDD ({path}), {ENSEMBLE_MEMBERS}-member ensemble"
+    assert_launches(what, launches, (ENSEMBLE_MEMBERS, 15 * ENSEMBLE_MEMBERS, 1))
+    c = cfg.num_classes
+    assert_detections(what, out, [(BATCH, K, 12), (BATCH, K), (BATCH, K, 1 + c), (BATCH,),
+                                  (BATCH, K, c)])
+    if int(out[3].max()) <= 0:
+        raise AssertionError(f"{what}: no detections")
+    phase(7, f"{what}: serve of [{BATCH}, 512, 1024, 3] uint8, bf16: launches in "
+             f"{SERVE_CALLS} calls {launches} (fused_dw fast path "
+             f"{fused_dw.path_launches['fast']}); packed "
+             f"{[tuple(t.shape) for t in out]}, valid_len {out[3].tolist()}; {ms:.1f} ms/batch "
+             f"({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}, first "
+             f"{first:.0f} ms), peak {peak:.2f} GiB; {smi}")
+    if profiled:
+        profile_calls("5-member ensemble serve", lambda: server.serve(raw), ms)
+    del server, stacked, out
+    torch.cuda.empty_cache()
+
+    # 3. EfficientDetModel with per-class NMS at the KITTI configuration
+    cfg = get_detection_config("efficientdet-d0").override(KITTI_HEAD[1])
+    model = EfficientDetModel(cfg)
+    init_flax_style(model, torch.Generator().manual_seed(0))
+    model = model.to(dev, torch.bfloat16).eval()
+    model.backbone.prepare_inference()
+
+    def per_class():
+        with torch.inference_mode():
+            return model(frames.to(dev), post_mode="per_class")
+
+    out, ms, first, launches, peak = timed_calls(per_class)
+    what = "EfficientDetModel(post_mode='per_class') at the KITTI configuration"
+    assert_launches(what, launches, (1, 15, 1))
+    c = cfg.num_classes
+    assert_detections(what, out, [(BATCH, K, 8), (BATCH, K), (BATCH, K), (BATCH,), (BATCH, K, c)])
+    if int(out[3].max()) <= 0:
+        raise AssertionError(f"{what}: no detections")
+    phase(7, f"{what}: native {h}x{w} uint8 frames, preprocess on the card, one deterministic "
+             f"pass, per-class soft-NMS, B={BATCH} bf16: launches in {SERVE_CALLS} calls "
+             f"{launches}; valid_len {out[3].tolist()}; {ms:.1f} ms/batch "
+             f"({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}), peak "
+             f"{peak:.2f} GiB; {smi}")
+    if profiled:
+        profile_calls("EfficientDetModel per-class", per_class, ms)
+    del model, out
+    torch.cuda.empty_cache()
+
+
 def main():
+    start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -587,6 +888,7 @@ def main():
     # -- 3. kernels vs plain ---------------------------------------------------
     rng = np.random.RandomState(0)
     max_err, times, picks = check_soft_nms(dev, rng, smi)
+    max_err = max(max_err, check_per_class_nms(dev, rng, smi))
     f32_err = check_fused_f32(dev, rng)
     bf16_err, fused_times = check_fused_bf16(dev, rng, smi)
     torch.cuda.empty_cache()
@@ -628,38 +930,12 @@ def main():
              f"{walls[0] * 1e3:.0f} ms), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
              f"GiB (unfused eager serve on this card model: 91.4 ms/batch, 4.73 GiB); {smi}")
     if "--profile" in sys.argv[1:]:
-        profile_serve(server, raw)
+        profile_calls("phase 4 serve", lambda: server.serve(raw), ms)
     del server, out
     torch.cuda.empty_cache()
 
     # -- 5. device parity: CPU (plain versions) vs card (kernels), f32 -------
-    small = dict(image_size="128x128", num_classes=8, loss_attenuation=True,
-                 fpn_cell_repeats=1, box_class_repeats=1, mc_dropout=True,
-                 mc_dropoutrate=0.05, mc_dropoutsamp=3)
-    config = get_detection_config("efficientdet-d0").override(small)
-    params, stats = random_flax_variables(EfficientDetNet(config), seed=2)
-    state = flax_to_torch(params, stats)
-    images = np.random.RandomState(3).uniform(-2, 2, (2, 128, 128, 3)).astype(np.float32)
-    for path, extra in (("MC fold", {}), ("MC without the fold", {"mc_fast_fold": False}),
-                        ("deterministic", {"mc_dropout": False, "mc_dropoutrate": 0.0})):
-        cfg = get_detection_config("efficientdet-d0").override({**small, **extra},
-                                                               allow_new_keys=True)
-        outs = []
-        for device in ("cpu", dev):
-            d = ServingDriver(cfg, state, dtype=torch.float32, device=device)
-            d.masks = HostMasks(torch.Generator().manual_seed(4))
-            reset_counts()
-            outs.append(d.serve_preprocessed(images))
-            want = (0, 0, 0) if device == "cpu" else (1, 15, 1)
-            if counts() != want or fused_dw.path_launches["fast"] != want[0]:
-                raise AssertionError(f"{path} on {device}: (fused_dw, fused_expand_dw, "
-                                     f"soft_nms) launches {counts()}, want {want}; fused_dw "
-                                     f"paths {fused_dw.path_launches}")
-        worst = matched_sets(outs[1], outs[0], f"{path}: cuda vs cpu")
-        phase(5, f"128x128 f32 {path}: card (kernels, launches 1/15/1, fused_dw on its fast "
-                 f"path) and CPU (plain) "
-                 f"detections agree as matched sets, valid_len {outs[0][3].tolist()}, max "
-                 f"score diff {worst:.2e}")
+    phase5(dev)
 
     # -- 6. the packed-layout microbench ---------------------------------------
     t0 = time.perf_counter()
@@ -689,6 +965,11 @@ def main():
           + " graph replays, median of the round medians [min, max]: " + ", ".join(
               f"{case} {p1[case]:.4f} [{min(ms):.4f}, {max(ms):.4f}]"
               for case, ms in rounds.items()) + f"; {smi}")
+
+    # -- 7. the repo's inference configurations at full width ---------------
+    t0 = time.perf_counter()
+    phase7(dev, smi, "--profile" in sys.argv[1:])
+    phase(7, f"done in {time.perf_counter() - t0:.1f} s")
 
     kernel_ms, plain_ms = times["gaussian"]
     # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per
@@ -730,6 +1011,7 @@ def main():
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]
         row["library_ms"] = library.get(row["name"])
+    phase("total", f"{time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -47,3 +47,26 @@ def test_unknown_key_and_yaml_path_raise():
 def test_geometry_helpers_equal(size, level):
     assert torch_config.parse_image_size(size) == jax_config.parse_image_size(size)
     assert torch_config.get_feat_sizes(size, level) == jax_config.get_feat_sizes(size, level)
+
+
+@pytest.mark.parametrize("name", ["KITTI_HEAD", "BDD"])
+def test_chip_smoke_inference_configs_equal_their_yaml(name):
+    """``chip_smoke.py`` carries the overrides of two config files in code
+    (the card has no yaml): the same keys as the file, and the port's d0
+    config overridden with them equals ``udal_tpu.config``'s overridden
+    with the file, at every key the file sets."""
+    import pathlib
+
+    import yaml
+
+    import chip_smoke
+
+    path, overrides = getattr(chip_smoke, name)
+    path = pathlib.Path(__file__).resolve().parents[1] / path
+    keys = yaml.safe_load(path.read_text())
+    assert set(overrides) == set(keys)
+    want = jax_config.get_detection_config("efficientdet-d0").override(str(path))
+    got = torch_config.get_detection_config("efficientdet-d0").override(overrides)
+    for key in keys:
+        assert got[key] == want[key], key
+        assert type(got[key]) is type(want[key]), key

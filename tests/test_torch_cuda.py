@@ -549,3 +549,148 @@ def test_packed_kernels_raise_on_what_they_do_not_take(cuda):
                                 16)
     with pytest.raises(ValueError, match="C4"):
         packed.packed_pointwise(bf16_normal(0, (100, 8), cuda), bf16_normal(0, (8, 8), cuda), 64)
+
+
+# -- the inference surface's new operands and paths ---------------------------
+
+SMALL = dict(image_size="128x128", num_classes=8, loss_attenuation=True, fpn_cell_repeats=1,
+             box_class_repeats=1)
+HEAD_ONLY = dict(mc_dropout=True, mc_classheadrate=0.05, mc_boxheadrate=0.05,
+                 mc_dropoutsamp=3, enable_softmax=True)
+
+
+class HostDropout:
+    """Dropout bits drawn on the host, so a CPU and a card run share them."""
+
+    def __init__(self, seed):
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def draw(self, n, c, keep, device):
+        return (torch.rand((n, c), generator=self.generator) < keep).to(device)
+
+
+def kernel_counts():
+    return fused_dw.launches, fused_mbconv.launches, cuda_nms.launches
+
+
+def random_state(seed):
+    """The small config's weights from ``seed``: convs at lecun scale, BN
+    scales and variances in [0.5, 1.5], the rest N(0, 0.1), so that the
+    class scores spread out (flax's initializers make them nearly equal,
+    and near ties let f32 sums in another order reorder NMS picks). Fuse
+    edge weights in [0.5, 1.5] too."""
+    from udal_tpu_torch.config import get_detection_config
+    from udal_tpu_torch.models.efficientdet import EfficientDetNet
+
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+    for k, v in EfficientDetNet(get_detection_config("efficientdet-d0").override(SMALL)) \
+            .state_dict().items():
+        if v.dim() == 4:
+            state[k] = torch.randn(v.shape, generator=g) / float(np.prod(v.shape[1:])) ** 0.5
+        elif k.endswith(("running_var", "edge_weights", "weight")):    # BN scales: 1-d
+            state[k] = 0.5 + torch.rand(v.shape, generator=g)
+        else:
+            state[k] = 0.1 * torch.randn(v.shape, generator=g)
+    return state
+
+
+def small_driver(device, extra, state=None, **kwargs):
+    from udal_tpu_torch.apps.serving import ServingDriver
+
+    driver = ServingDriver.create("efficientdet-d0", state if state is not None else
+                                  random_state(3), overrides={**SMALL, **extra},
+                                  dtype=torch.float32, device=device, **kwargs)
+    driver.masks = HostDropout(4)
+    return driver
+
+
+def assert_same_detection_sets(got, want):
+    """Equal valid_len; per image the same scores and classes once sorted
+    (the card's f32 sums run in another order)."""
+    np.testing.assert_array_equal(got.valid_len.cpu().numpy(), want.valid_len.cpu().numpy())
+    for i, n in enumerate(want.valid_len.tolist()):
+        g, w = got.scores[i, :n].cpu(), want.scores[i, :n].cpu()
+        torch.testing.assert_close(g.sort().values, w.sort().values, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [0.5, 0.0], ids=["gaussian", "hard"])
+def test_kernel_matches_plain_on_per_class_operands(cuda, sigma):
+    """Boxes shifted by class ids in [0, 10) times 2·1024 (up to 18,688 px),
+    as ``per_class_nms`` shifts them at 1024x512."""
+    boxes, scores = random_batch(7, 5000, b=8)
+    classes = np.random.RandomState(8).randint(0, 10, (8, 5000, 1)).astype(np.float32)
+    b = torch.from_numpy(boxes + classes * 2048.0).to(cuda)
+    s = torch.from_numpy(scores).to(cuda)
+    want = nms.batched_soft_nms(b.cpu(), s.cpu(), 100, 0.5, score_threshold(sigma), sigma)
+    got = cuda_nms.batched_soft_nms(b, s, 100, 0.5, score_threshold(sigma), sigma)
+    assert_same_picks(got, want.indices.numpy(), want.scores.numpy(), want.valid_len.numpy())
+
+
+@pytest.mark.cuda
+def test_per_class_nms_runs_one_kernel_launch(no_tf32):
+    from udal_tpu_torch.config import get_detection_config
+    from udal_tpu_torch.ops.postprocess import per_class_nms
+
+    cfg = get_detection_config("efficientdet-d0").override(SMALL)
+    rng = np.random.RandomState(9)
+    cls = [torch.from_numpy(rng.normal(-1, 1.5, (2, 128 >> l, 128 >> l, 72)).astype(np.float32))
+           for l in range(3, 8)]
+    box = [torch.from_numpy(rng.normal(0, 0.2, (2, 128 >> l, 128 >> l, 72)).astype(np.float32))
+           for l in range(3, 8)]
+    want = per_class_nms(cfg, cls, box)
+    before = cuda_nms.launches
+    got = per_class_nms(cfg, [c.to(no_tf32) for c in cls], [b.to(no_tf32) for b in box])
+    assert cuda_nms.launches == before + 1
+    assert_same_detection_sets(got, want)
+    torch.testing.assert_close(got.classes.cpu(), want.classes)
+
+
+@pytest.mark.cuda
+def test_head_only_serve_on_the_card_matches_the_cpu(no_tf32):
+    """Head-only MC: the backbone once (fused_dw on its fast path, 15
+    fused_expand_dw without masks), the heads at T·B, one soft-NMS."""
+    cpu = small_driver("cpu", HEAD_ONLY)
+    card = small_driver(no_tf32, HEAD_ONLY)
+    images = np.random.RandomState(10).uniform(-2, 2, (2, 128, 128, 3)).astype(np.float32)
+    want = cpu.serve_detections_preprocessed(images)
+    before, fast = kernel_counts(), fused_dw.path_launches["fast"]
+    got = card.serve_detections_preprocessed(images)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (1, 15, 1)
+    assert fused_dw.path_launches["fast"] == fast + 1
+    assert_same_detection_sets(got, want)
+
+
+@pytest.mark.cuda
+def test_native_uint8_warp_entry_on_the_card_matches_the_cpu(no_tf32):
+    cpu = small_driver("cpu", {"mc_dropout": False})
+    card = small_driver(no_tf32, {"mc_dropout": False})
+    frames = np.random.RandomState(11).randint(0, 256, (2, 90, 150, 3)).astype(np.uint8)
+    warp = dict(warp_scale=np.asarray([[76 / 90, 128 / 150]] * 2, np.float32),
+                warp_offset=np.zeros((2, 2), np.float32))
+    want = cpu.serve_detections_preprocessed_uint8(frames, **warp)
+    got = card.serve_detections_preprocessed_uint8(frames, **warp)
+    assert_same_detection_sets(got, want)
+    from udal_tpu_torch.ops.image_ops import warp_resize_batch
+    x = torch.from_numpy(frames)
+    args = (torch.from_numpy(warp["warp_scale"]), torch.from_numpy(warp["warp_offset"]), (128, 128))
+    torch.testing.assert_close(warp_resize_batch(x.to(no_tf32), *args).cpu(),
+                               warp_resize_batch(x, *args), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ensemble_serve_launches_each_members_kernels(no_tf32):
+    from udal_tpu_torch.models.ensemble import stack_variables
+
+    stacked = stack_variables([random_state(3), random_state(5)])
+    cpu = small_driver("cpu", {"mc_dropout": False}, state=stacked, ensemble=True)
+    card = small_driver(no_tf32, {"mc_dropout": False}, state=stacked, ensemble=True)
+    images = np.random.RandomState(12).uniform(-2, 2, (2, 128, 128, 3)).astype(np.float32)
+    want = cpu.serve_detections_preprocessed(images)
+    before = kernel_counts()
+    got = card.serve_detections_preprocessed(images)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (2, 30, 1)
+    assert_same_detection_sets(got, want)

@@ -33,21 +33,34 @@ def small_overrides(mc: bool = False, samples: int = 3) -> dict:
                 mc_dropoutsamp=samples)
 
 
-def configs(mc: bool = False, samples: int = 3):
-    """(JAX config, port config) with the same overrides."""
+def configs(mc: bool = False, samples: int = 3, extra: dict = None):
+    """(JAX config, port config) with the same overrides, then ``extra``."""
     out = []
     for api in (jax_config, torch_config):
         cfg = api.get_detection_config("efficientdet-d0")
         cfg.override(small_overrides(mc, samples))
+        cfg.override(extra or {})
         out.append(cfg)
     return tuple(out)
 
 
+HEAD_ONLY = dict(mc_dropoutrate=0.0, mc_classheadrate=0.05, mc_boxheadrate=0.05,
+                 enable_softmax=True)
+SEGMENTATION = dict(heads=["object_detection", "segmentation"])
+
+
+_SHAPES = {}
+
+
 def flax_shapes(jax_cfg):
-    model = JaxNet(jax_cfg)
-    return jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMAGE, IMAGE, 3)),
-        train=False))
+    """The flax variable tree's shapes, traced once per configuration."""
+    key = repr(sorted(jax_cfg.as_dict().items()))
+    if key not in _SHAPES:
+        model = JaxNet(jax_cfg)
+        _SHAPES[key] = jax.eval_shape(lambda: model.init(
+            {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMAGE, IMAGE, 3)),
+            train=False))
+    return _SHAPES[key]
 
 
 def random_variables(jax_cfg, seed: int = 0) -> dict:
@@ -88,12 +101,14 @@ def _flat(tree, prefix=""):
             yield prefix + k, tuple(v.shape)
 
 
-@pytest.mark.parametrize("mc", [False, True])
-def test_port_layout_equals_flax_tree(mc):
+@pytest.mark.parametrize("mc,extra", [(False, None), (True, None), (False, SEGMENTATION)],
+                         ids=["False", "True", "segmentation"])
+def test_port_layout_equals_flax_tree(mc, extra):
     """Every flax leaf has a torch parameter or buffer of the same size, and
     the reverse: ``torch_to_flax`` of a fresh port model reproduces the
-    flax variable tree's paths and shapes."""
-    jax_cfg, torch_cfg = configs(mc)
+    flax variable tree's paths and shapes (with the segmentation head: its
+    transposed convs' kernels too)."""
+    jax_cfg, torch_cfg = configs(mc, extra=extra)
     want = flax_shapes(jax_cfg)
     params, stats = torch_to_flax(EfficientDetNet(torch_cfg))
     assert dict(_flat(params)) == dict(_flat(jax.tree_util.tree_map(

@@ -18,11 +18,23 @@ def _forbidden(module: str) -> bool:
 
 
 def test_serving_path_imports_no_jax_flax_yaml_or_jax_package():
-    code = ("import sys, udal_tpu_torch.apps.serving, udal_tpu_torch.ops.cuda_nms; "
+    """Every module of the inference surface, and each entry of the serving
+    driver, loads without JAX, flax, yaml or the JAX package."""
+    code = ("import sys, udal_tpu_torch.apps.serving as s, udal_tpu_torch.ops.cuda_nms, "
+            "udal_tpu_torch.ops.image_ops, udal_tpu_torch.models.ensemble, "
+            "udal_tpu_torch.apps.reader_batches, udal_tpu_torch.convert; "
+            "from udal_tpu_torch.models.efficientdet import EfficientDetModel; "
+            "from udal_tpu_torch.ops.postprocess import per_class_nms, generate_detections; "
+            "from udal_tpu_torch.convert import flax_to_torch_stacked; "
+            "[getattr(s.ServingDriver, e) for e in ('serve', 'serve_detections', "
+            "'serve_preprocessed', 'serve_detections_preprocessed', 'serve_preprocessed_uint8', "
+            "'serve_detections_preprocessed_uint8', 'benchmark')]; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PORT.parent, check=True).stdout.split()
-    assert "torch" in out and "udal_tpu_torch.ops.postprocess" in out
+    for module in ("torch", "udal_tpu_torch.ops.postprocess", "udal_tpu_torch.ops.image_ops",
+                   "udal_tpu_torch.models.ensemble", "udal_tpu_torch.apps.reader_batches"):
+        assert module in out
     assert [m for m in out if _forbidden(m)] == []
 
 

@@ -86,9 +86,15 @@ def test_decode_uncert_matches(method):
 
 @pytest.mark.parametrize("method", ["sample", "falsedec"])
 def test_unported_decodes_raise(method):
+    """The two decodes that once raised run now (their parity is in
+    test_torch_uncertainty.py); a method name the package does not know
+    still raises."""
     x = torch.zeros(4, 4)
-    with pytest.raises(NotImplementedError, match="A8"):
-        uncertainty.decode_uncert(x, x, x, method)
+    boxes, stds = uncertainty.decode_uncert(x, x + 0.1, x + torch.tensor([0., 0., 8., 8.]),
+                                            method, n_samples=4)
+    assert boxes.shape == stds.shape == (4, 4) and bool(torch.isfinite(stds).all())
+    with pytest.raises(ValueError, match="Unknown"):
+        uncertainty.decode_uncert(x, x, x, method + "-unknown")
 
 
 def test_mc_moments_match():

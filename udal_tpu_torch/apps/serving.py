@@ -1,12 +1,19 @@
-"""Serving driver: raw images to packed detections with uncertainty.
+"""Serving driver: raw images to detections with uncertainty.
 
-Port of the serving path of ``udal_tpu/apps/serving.py``: preprocess
-(normalise / resize) → deterministic or MC-dropout forward (the shared
-prefix + block-0 fold, then T samples as one T·B batch; each MBConv's
-front half one fused call) → global uncertainty post-processing with
-soft-NMS. The fused depthwise, fused expand + depthwise and soft-NMS run as
-CUDA kernels when the tensors live on a GPU. Eager PyTorch under
-``inference_mode``.
+Port of the serving surface of ``udal_tpu/apps/serving.py``: preprocess
+(normalise / resize) → deterministic, MC-dropout (the shared prefix +
+block-0 fold, or the backbone once and the heads T times, then T samples
+as one T·B batch; each MBConv's front half one fused call) or deep-ensemble
+forward → global uncertainty post-processing with soft-NMS. The fused
+depthwise, fused expand + depthwise and soft-NMS run as CUDA kernels when
+the tensors live on a GPU. Eager PyTorch under ``inference_mode``.
+
+The entries follow the input reader's three batch contracts: raw images
+(``serve``), normalised network-size f32 (``serve_preprocessed``),
+network-size uint8 (``serve_preprocessed_uint8``, normalised on the
+device) and native-size uint8 with warp parameters (the same entry; the
+bilinear resize runs on the device too). Each has a ``serve_detections*``
+twin that returns ``Detections`` instead of the packed tuple.
 
 Imports neither ``yaml`` nor the JAX package, so it loads on a machine that
 has only PyTorch and numpy.
@@ -14,15 +21,18 @@ has only PyTorch and numpy.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from udal_tpu_torch.config import Config, get_detection_config
+from udal_tpu_torch.config import Config, get_detection_config, parse_image_size
 from udal_tpu_torch.models.efficientdet import (EfficientDetNet, init_flax_style,
                                                 mc_forward, preprocess_images)
 from udal_tpu_torch.models.efficientnet import ChannelDropout
-from udal_tpu_torch.ops.postprocess import postprocess_global
+from udal_tpu_torch.models.ensemble import ensemble_forward, unstack_variables
+from udal_tpu_torch.ops.image_ops import warp_resize_batch
+from udal_tpu_torch.ops.postprocess import Detections, postprocess_global
 
 
 class ServingDriver:
@@ -32,17 +42,24 @@ class ServingDriver:
       boxes, scores, classes, valid_len = driver.serve(uint8_images)
 
     ``state_dict`` holds the model weights (for instance from
-    ``convert.flax_to_torch``). It runs on the card (``cuda``) unless
+    ``convert.flax_to_torch``); with ``ensemble=True`` it is N members'
+    stacked on a leading axis (``models.ensemble.stack_variables``,
+    ``convert.flax_to_torch_stacked``) and every serve runs all members,
+    fused as MC samples are. It runs on the card (``cuda``) unless
     ``device`` says otherwise, and raises without one; the CPU is asked for
     as ``device="cpu"``. The compute dtype is bf16 on a CUDA device and f32
-    on the CPU unless ``dtype`` is given. MC-dropout masks come from
-    a ``torch.Generator`` seeded with ``mc_seed``; ``self.masks`` is the
-    source the forward draws from.
+    on the CPU unless ``dtype`` is given. MC-dropout masks come from a
+    ``torch.Generator`` seeded with ``mc_seed``; ``self.masks`` is the
+    source the forward draws from. ``batch_size`` is kept for the callers'
+    signatures; nothing here reads it.
     """
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
-                 dtype: Optional[torch.dtype] = None, mc_seed: int = 0, device=None):
+                 batch_size: int = 1, dtype: Optional[torch.dtype] = None, mc_seed: int = 0,
+                 device=None, ensemble: bool = False):
         self.config = config
+        self.batch_size = batch_size
+        self.ensemble = ensemble
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingDriver runs on a CUDA device unless device='cpu' is "
@@ -50,17 +67,27 @@ class ServingDriver:
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.dtype = dtype
-        model = EfficientDetNet(config)
-        model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(device=self.device, dtype=dtype).eval()
-        self.model.backbone.prepare_inference()
+        self.members = [self._build(sd) for sd in
+                        (unstack_variables(state_dict) if ensemble else [state_dict])]
+        self.num_members = len(self.members)
+        self.model = self.members[0]
         generator = torch.Generator(device=self.device)
         generator.manual_seed(mc_seed)
         self.masks = ChannelDropout(generator)
+        # the uint8 entries' normalisation, on the device once
+        self._mean, self._std = (torch.tensor(v, dtype=torch.float32, device=self.device)
+                                 for v in (config.mean_rgb, config.stddev_rgb))
+
+    def _build(self, state_dict: Mapping[str, torch.Tensor]) -> EfficientDetNet:
+        model = EfficientDetNet(self.config)
+        model.load_state_dict(state_dict, strict=True)
+        model = model.to(device=self.device, dtype=self.dtype).eval()
+        model.backbone.prepare_inference()
+        return model
 
     @classmethod
     def create(cls, model_name: str, state_dict: Optional[Mapping] = None,
-               overrides: Optional[Dict] = None, seed: int = 0,
+               overrides: Optional[Dict] = None, batch_size: int = 1, seed: int = 0,
                **kwargs) -> "ServingDriver":
         """Driver for a named model; without ``state_dict``, random weights
         drawn as flax's initializers draw them, from ``seed``."""
@@ -71,41 +98,130 @@ class ServingDriver:
             model = EfficientDetNet(config)
             init_flax_style(model, torch.Generator().manual_seed(seed))
             state_dict = model.state_dict()
-        return cls(config, state_dict, **kwargs)
+        return cls(config, state_dict, batch_size, **kwargs)
 
     # -- core program --------------------------------------------------------
 
     def _forward(self, images: torch.Tensor):
         cfg = self.config
+        if self.ensemble:
+            return ensemble_forward(self.members, images)
         if cfg.mc_dropout and (cfg.mc_dropoutrate or cfg.mc_classheadrate or
                                cfg.mc_boxheadrate):
             return mc_forward(self.model, images, cfg.mc_dropoutsamp, self.masks)
         return self.model(images)
 
-    def _serve_pre_impl(self, images: torch.Tensor, scales: torch.Tensor):
-        cls_s, box_s = self._forward(images.to(self.dtype))
-        return postprocess_global(self.config, cls_s, box_s,
-                                  image_scales=scales).packed()
+    def _detect(self, images: torch.Tensor, scales: torch.Tensor) -> Detections:
+        outs = self._forward(images.to(self.dtype))
+        return postprocess_global(self.config, outs[0], outs[1], image_scales=scales)
+
+    def _raw(self, raw_images) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.config
+        raw = torch.as_tensor(raw_images, device=self.device)
+        return preprocess_images(raw, cfg.image_size, cfg.mean_rgb, cfg.stddev_rgb)
+
+    def _scales(self, image_scales, batch: int) -> torch.Tensor:
+        if image_scales is None:
+            return torch.ones((batch,), dtype=torch.float32, device=self.device)
+        return torch.as_tensor(image_scales, dtype=torch.float32, device=self.device)
+
+    def _pre(self, images, image_scales) -> Tuple[torch.Tensor, torch.Tensor]:
+        images = torch.as_tensor(images, device=self.device)
+        return images, self._scales(image_scales, images.shape[0])
+
+    def _u8_prep(self, images: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
+        """Normalise network-size uint8 (or warped f32) images on the device
+        and zero the rows and columns past each image's ``valid_hw``."""
+        x = (images.to(torch.float32) - self._mean) / self._std
+        h, w = x.shape[1], x.shape[2]
+        rmask = torch.arange(h, device=x.device)[None, :] < valid_hw[:, :1]
+        cmask = torch.arange(w, device=x.device)[None, :] < valid_hw[:, 1:]
+        return x * (rmask[:, :, None] & cmask[:, None, :])[..., None].to(x.dtype)
+
+    def _dispatch_uint8(self, images_u8, valid_hw, image_scales, warp_scale,
+                        warp_offset) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fast-input entries' images on the device, normalised at the
+        network size (warped first when ``warp_scale`` is given), and
+        their scales. ``valid_hw`` defaults to everything valid: the
+        network size with warp parameters, the input's size without."""
+        x = torch.as_tensor(images_u8, device=self.device)
+        b, h, w = x.shape[:3]
+        if warp_scale is not None:
+            out_hw = parse_image_size(self.config.image_size)
+            if warp_offset is None:
+                raise ValueError("warp_scale comes with warp_offset (the device-resize "
+                                 "reader gives both)")
+            x = warp_resize_batch(x, torch.as_tensor(warp_scale, device=self.device),
+                                  torch.as_tensor(warp_offset, device=self.device), out_hw)
+            h, w = out_hw
+        if valid_hw is None:
+            valid_hw = torch.tensor([[h, w]] * b, dtype=torch.int32)
+        valid_hw = torch.as_tensor(valid_hw, dtype=torch.int32, device=self.device)
+        return self._u8_prep(x, valid_hw), self._scales(image_scales, b)
+
+    # -- entries ---------------------------------------------------------------
 
     def serve(self, raw_images) -> Tuple[torch.Tensor, ...]:
         """Raw uint8/float images [B, H, W, 3] → packed detection tuple
         (boxes⊕sigma_al⊕sigma_mc, scores, classes⊕sigma_cls, valid_len
         [, logits])."""
-        cfg = self.config
+        return self.serve_detections(raw_images).packed()
+
+    def serve_detections(self, raw_images) -> Detections:
+        """Structured (unpacked) serve of raw images."""
         with torch.inference_mode():
-            raw = torch.as_tensor(raw_images, device=self.device)
-            images, scales = preprocess_images(raw, cfg.image_size, cfg.mean_rgb,
-                                               cfg.stddev_rgb)
-            return self._serve_pre_impl(images, scales)
+            return self._detect(*self._raw(raw_images))
 
     def serve_preprocessed(self, images, image_scales=None) -> Tuple[torch.Tensor, ...]:
         """Packed serve of already normalised and resized NHWC images;
         ``image_scales`` [B] map boxes back to the original frame."""
+        return self.serve_detections_preprocessed(images, image_scales).packed()
+
+    def serve_detections_preprocessed(self, images, image_scales=None) -> Detections:
+        """Structured serve of already normalised and resized images."""
         with torch.inference_mode():
-            images = torch.as_tensor(images, device=self.device)
-            if image_scales is None:
-                image_scales = torch.ones((images.shape[0],), dtype=torch.float32,
-                                          device=self.device)
-            scales = torch.as_tensor(image_scales, dtype=torch.float32,
-                                     device=self.device)
-            return self._serve_pre_impl(images, scales)
+            return self._detect(*self._pre(images, image_scales))
+
+    def serve_preprocessed_uint8(self, images_u8, valid_hw=None, image_scales=None,
+                                 warp_scale=None, warp_offset=None) -> Tuple[torch.Tensor, ...]:
+        """Packed serve of network-size, unnormalised uint8 images [B, H, W,
+        3] (the reader's fast-input contract): the upload is uint8, and the
+        normalisation and the zeroing past ``valid_hw`` [B, 2] run on the
+        device. With ``warp_scale`` / ``warp_offset`` [B, 2] (y, x; the
+        reader's device-resize contract) the images are native-size and
+        the bilinear resize onto the network's canvas runs on the device
+        first (``ops.image_ops.warp_resize_batch``)."""
+        return self.serve_detections_preprocessed_uint8(
+            images_u8, valid_hw, image_scales, warp_scale, warp_offset).packed()
+
+    def serve_detections_preprocessed_uint8(self, images_u8, valid_hw=None,
+                                            image_scales=None, warp_scale=None,
+                                            warp_offset=None) -> Detections:
+        """Structured twin of ``serve_preprocessed_uint8``."""
+        with torch.inference_mode():
+            return self._detect(*self._dispatch_uint8(images_u8, valid_hw, image_scales,
+                                                      warp_scale, warp_offset))
+
+    # -- benchmark ------------------------------------------------------------
+
+    def benchmark(self, raw_images, warmup: int = 3, iters: int = 10) -> Dict[str, float]:
+        """Latency and throughput of the forward + post-processing on one
+        preprocessed batch: ``warmup`` calls, then ``iters`` timed calls
+        (each with fresh dropout masks) ending in a device synchronisation.
+        Returns {"latency_ms": per call, "fps": images per second}."""
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        with torch.inference_mode():
+            images, scales = self._raw(raw_images)
+            images = images.to(self.dtype)
+            for _ in range(warmup):
+                self._detect(images, scales)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self._detect(images, scales)
+            sync()
+            dt = (time.perf_counter() - t0) / iters
+        return {"latency_ms": dt * 1e3, "fps": images.shape[0] / dt}

@@ -11,12 +11,18 @@ mapping is a rename plus a layout change:
 * BatchNorm ``<path>/bn/{scale, bias}`` with batch_stats ``<path>/bn/{mean,
   var}`` → ``<path>.{weight, bias, running_mean, running_var}`` (the flax
   module wraps an ``nn.BatchNorm`` named ``bn``);
-* fuse ``edge_weights`` carry over as they are.
+* fuse ``edge_weights`` carry over as they are;
+* the segmentation head's transposed-conv kernels (``seg_head/<name>/kernel``,
+  flax [k, k, in, out], not flipped: ``transpose_kernel=False``) become
+  ``ConvTransposeSame`` weights [in, out, k, k], flipped in both spatial
+  axes (``models/heads.py`` says why).
 
 Flax scope names with hyphens (``class-0-bn-3``, ``box-predict``) are
 ``nn.ModuleDict`` keys on the torch side, so they rename like any other.
 ``torch_to_flax`` is the inverse. ``load_flax`` loads a converted tree and
-raises on a leftover on either side.
+raises on a leftover on either side. ``flax_to_torch_stacked`` converts a
+deep ensemble's tree, whose leaves carry a leading member axis, into the
+stacked state dict ``ServingDriver(ensemble=True)`` takes.
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ def flax_to_torch(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tens
         *mod, leaf = path
         if mod and mod[-1] == "bn" and leaf in _BN_PARAMS:
             key = ".".join(mod[:-1] + [_BN_PARAMS[leaf]])
+        elif leaf == "kernel" and v.ndim == 4 and mod[0] == "seg_head":
+            key, v = ".".join(mod + ["weight"]), v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
         elif leaf == "kernel" and v.ndim == 4:
             key, v = ".".join(mod + ["weight"]), v.transpose(3, 2, 0, 1)
         elif leaf in ("bias", "edge_weights"):
@@ -65,6 +73,21 @@ def flax_to_torch(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tens
         out[".".join(mod[:-1] + [_BN_STATS[leaf]])] = torch.from_numpy(
             np.asarray(v, dtype=np.float32).copy())
     return out
+
+
+def flax_to_torch_stacked(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """Stacked state dict [N, ...] a key from an N-member flax tree whose
+    leaves carry a leading member axis (``udal_tpu.models.ensemble.
+    stack_variables``): each member converted, then stacked."""
+    flat = {**_flatten(params), **_flatten(batch_stats)}
+    n = len(next(iter(flat.values())))
+
+    def member(tree, i):
+        return {k: member(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+                for k, v in tree.items()}
+
+    members = [flax_to_torch(member(params, i), member(batch_stats, i)) for i in range(n)]
+    return {k: torch.stack([m[k] for m in members]) for k in members[0]}
 
 
 def torch_to_flax(model: nn.Module) -> Tuple[Dict, Dict]:
@@ -88,6 +111,8 @@ def torch_to_flax(model: nn.Module) -> Tuple[Dict, Dict]:
                     put(params, path + ["bn", "scale" if leaf == "weight" else "bias"], v)
                 else:
                     put(batch_stats, path + ["bn", leaf.replace("running_", "")], v)
+            elif leaf == "weight" and isinstance(mod, nn.ConvTranspose2d):
+                put(params, path + ["kernel"], v[:, :, ::-1, ::-1].transpose(2, 3, 0, 1).copy())
             elif leaf == "weight":
                 put(params, path + ["kernel"], v.transpose(2, 3, 1, 0))
             else:

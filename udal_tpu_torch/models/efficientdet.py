@@ -1,9 +1,12 @@
 """EfficientDet in PyTorch: port of ``udal_tpu/models/efficientdet.py``.
 
-Backbone → extra-level resampling → BiFPN → class/box heads, raw per-level
-outputs. The JAX package's MC-dropout forward is a ``vmap`` over dropout
-keys; here the T samples are a T·B batch dimension written out (t-major),
-with masks from an explicit ``ChannelDropout`` source.
+Backbone → extra-level resampling → BiFPN → class/box (and segmentation)
+heads, raw per-level outputs. The JAX package's MC-dropout forward is a
+``vmap`` over dropout keys; here the T samples are a T·B batch dimension
+written out (t-major), with masks from an explicit ``ChannelDropout``
+source. With dropout in the heads only, the backbone and BiFPN run once at
+B and only the heads run at T·B. ``EfficientDetModel`` adds the
+preprocessing and the post-processing around one pass of the network.
 
 Public boundaries keep the JAX package's NHWC layout: images are
 [B, H, W, 3] and per-level outputs [B, H, W, C] (or [T, B, H, W, C] from
@@ -13,7 +16,7 @@ Public boundaries keep the JAX package's NHWC layout: images are
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -23,25 +26,41 @@ from udal_tpu_torch.config import Config, get_feat_sizes, parse_image_size
 from udal_tpu_torch.models.bifpn import FPNCells, ResampleFeatureMap
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, EfficientNet,
                                                 backbone_spec)
-from udal_tpu_torch.models.heads import CLASS_PRIOR_BIAS, BoxNet, ClassNet
+from udal_tpu_torch.models.heads import (CLASS_PRIOR_BIAS, BoxNet, ClassNet,
+                                         ConvTransposeSame, SegmentationHead)
+from udal_tpu_torch.ops.postprocess import per_class_nms, postprocess_global
 
-Outputs = Tuple[List[torch.Tensor], List[torch.Tensor]]
+# (class maps per level, box maps per level[, segmentation logits])
+Outputs = Tuple[Union[List[torch.Tensor], torch.Tensor], ...]
 
 
-def _nhwc(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 2, 3, 1)
+def _nhwc(outs: Sequence) -> Outputs:
+    """NCHW head outputs (lists of per-level maps, or one map) → NHWC views."""
+    return tuple([t.permute(0, 2, 3, 1) for t in o] if isinstance(o, list)
+                 else o.permute(0, 2, 3, 1) for o in outs)
+
+
+def split_samples(outs: Outputs, num_samples: int, batch: int) -> Outputs:
+    """Outputs of a t-major T·B batch → the same with [T, B, ...] maps."""
+    def split(t):
+        return t.reshape(num_samples, batch, *t.shape[1:])
+    return tuple([split(t) for t in o] if isinstance(o, list) else split(o) for o in outs)
+
+
+def head_only_mc(cfg: Config) -> bool:
+    """MC dropout confined to the heads: no backbone rate, a head rate."""
+    return bool(cfg.mc_dropout) and not cfg.mc_dropoutrate and \
+        bool(cfg.mc_classheadrate or cfg.mc_boxheadrate)
 
 
 class EfficientDetNet(nn.Module):
-    """Backbone + BiFPN + class/box heads (no segmentation head)."""
+    """Backbone + BiFPN + the heads ``config.heads`` names."""
 
     def __init__(self, config: Config):
         super().__init__()
         cfg = self.config = config
-        if "segmentation" in cfg.heads:
-            raise NotImplementedError("the segmentation head is not ported yet")
-        if "object_detection" not in cfg.heads:
-            raise ValueError("the port serves the object_detection head")
+        if not {"object_detection", "segmentation"} & set(cfg.heads):
+            raise ValueError(f"no head to build in {cfg.heads}")
         min_level, max_level = cfg.min_level, cfg.max_level
         num_levels = max_level - min_level + 1
         self.feat_sizes = get_feat_sizes(cfg.image_size, max_level)
@@ -71,15 +90,19 @@ class EfficientDetNet(nn.Module):
             apply_bn_for_resampling=cfg.apply_bn_for_resampling)
 
         num_anchors = len(cfg.aspect_ratios) * cfg.num_scales
-        self.class_net = ClassNet(
-            cfg.num_classes, num_anchors, cfg.fpn_num_filters, num_levels,
-            cfg.box_class_repeats, cfg.separable_conv, cfg.act_type,
-            cfg.survival_prob, mc_clsrate)
-        # loss attenuation doubles the box output to 8·A (μ, σ)
-        self.box_net = BoxNet(
-            2 * num_anchors if cfg.loss_attenuation else num_anchors,
-            cfg.fpn_num_filters, num_levels, cfg.box_class_repeats,
-            cfg.separable_conv, cfg.act_type, cfg.survival_prob, mc_boxrate)
+        if "object_detection" in cfg.heads:
+            self.class_net = ClassNet(
+                cfg.num_classes, num_anchors, cfg.fpn_num_filters, num_levels,
+                cfg.box_class_repeats, cfg.separable_conv, cfg.act_type,
+                cfg.survival_prob, mc_clsrate)
+            # loss attenuation doubles the box output to 8·A (μ, σ)
+            self.box_net = BoxNet(
+                2 * num_anchors if cfg.loss_attenuation else num_anchors,
+                cfg.fpn_num_filters, num_levels, cfg.box_class_repeats,
+                cfg.separable_conv, cfg.act_type, cfg.survival_prob, mc_boxrate)
+        if "segmentation" in cfg.heads:
+            self.seg_head = SegmentationHead(cfg.seg_num_classes, cfg.fpn_num_filters,
+                                             num_levels, cfg.act_type)
 
     def features(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                  start_block: int = 0) -> List[torch.Tensor]:
@@ -94,22 +117,28 @@ class EfficientDetNet(nn.Module):
 
     def predict_heads(self, feats: List[torch.Tensor],
                       masks: Optional[ChannelDropout] = None) -> Outputs:
-        """NCHW class and box maps per level."""
-        return self.class_net(feats, masks), self.box_net(feats, masks)
+        """NCHW heads' outputs: class and box maps per level (object
+        detection), then the segmentation logits."""
+        cfg = self.config
+        outs = []
+        if "object_detection" in cfg.heads:
+            outs += [self.class_net(feats, masks), self.box_net(feats, masks)]
+        if "segmentation" in cfg.heads:
+            outs.append(self.seg_head(feats))
+        return tuple(outs)
 
     def forward(self, images: torch.Tensor,
                 masks: Optional[ChannelDropout] = None) -> Outputs:
-        """NHWC images [B, H, W, 3] → per-level NHWC (class, box) outputs."""
+        """NHWC images [B, H, W, 3] → NHWC outputs: (class, box) per level
+        [, segmentation logits]."""
         x = images.permute(0, 3, 1, 2).contiguous()
-        cls, box = self.predict_heads(self.features(x, masks), masks)
-        return [_nhwc(t) for t in cls], [_nhwc(t) for t in box]
+        return _nhwc(self.predict_heads(self.features(x, masks), masks))
 
     def forward_from_block1(self, x: torch.Tensor,
                             masks: Optional[ChannelDropout] = None) -> Outputs:
-        """NCHW block-1 input → per-level NHWC outputs: the per-sample part
-        of the fast MC path (the stem and block 0 run once outside)."""
-        cls, box = self.predict_heads(self.features(x, masks, start_block=1), masks)
-        return [_nhwc(t) for t in cls], [_nhwc(t) for t in box]
+        """NCHW block-1 input → NHWC outputs: the per-sample part of the
+        fast MC path (the stem and block 0 run once outside)."""
+        return _nhwc(self.predict_heads(self.features(x, masks, start_block=1), masks))
 
 
 def init_flax_style(model: EfficientDetNet, generator: torch.Generator) -> None:
@@ -134,7 +163,14 @@ def init_flax_style(model: EfficientDetNet, generator: torch.Generator) -> None:
 
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, ConvTransposeSame):
+                # flax's default lecun_normal over its [k, k, in, out] kernel
+                fan_in = mod.weight.shape[0] * mod.weight.shape[2] * mod.weight.shape[3]
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                nn.init.zeros_(mod.bias)
+            elif isinstance(mod, nn.Conv2d):
                 head = name.startswith(("class_net.", "box_net."))
                 separable = name.endswith((".depthwise", ".pointwise"))
                 if head and separable:
@@ -154,31 +190,61 @@ def init_flax_style(model: EfficientDetNet, generator: torch.Generator) -> None:
                 nn.init.ones_(mod.running_var)
             if getattr(mod, "edge_weights", None) is not None:
                 nn.init.ones_(mod.edge_weights)
-        predict = model.class_net[model.class_net.predict_name]
-        bias = predict.pointwise.bias if hasattr(predict, "pointwise") else predict.bias
-        nn.init.constant_(bias, CLASS_PRIOR_BIAS)
+        if "object_detection" in model.config.heads:
+            predict = model.class_net[model.class_net.predict_name]
+            bias = predict.pointwise.bias if hasattr(predict, "pointwise") else predict.bias
+            nn.init.constant_(bias, CLASS_PRIOR_BIAS)
 
 
 def mc_forward(model: EfficientDetNet, images: torch.Tensor, num_samples: int,
                masks: ChannelDropout) -> Outputs:
-    """MC-dropout forward of NHWC images: per-level [T, B, H, W, C] lists.
+    """MC-dropout forward of NHWC images: outputs with [T, B, H, W, C] maps.
 
-    Takes the shared-prefix + block-0 fold (``mc_fast.py``) where it applies
-    exactly, else runs the T samples as one t-major T·B batch.
+    With dropout in the heads only, the backbone and BiFPN run once at B
+    and their maps are repeated t-major for the heads at T·B. Otherwise
+    takes the shared-prefix + block-0 fold (``mc_fast.py``) where it
+    applies exactly, else runs the T samples as one t-major T·B batch.
     """
     from udal_tpu_torch.models.mc_fast import fast_mc_eligible, mc_forward_fast
 
-    cfg = model.config
-    if cfg.mc_dropout and not cfg.mc_dropoutrate and \
-            (cfg.mc_classheadrate or cfg.mc_boxheadrate):
-        raise NotImplementedError("head-only MC dropout is not ported yet (ROADMAP A8)")
-    if fast_mc_eligible(cfg, model):
-        return mc_forward_fast(model, images, num_samples, masks)
     b = images.shape[0]
+    if head_only_mc(model.config):
+        feats = model.features(images.permute(0, 3, 1, 2).contiguous())
+        feats = [f.repeat(num_samples, 1, 1, 1) for f in feats]
+        return split_samples(_nhwc(model.predict_heads(feats, masks)), num_samples, b)
+    if fast_mc_eligible(model.config, model):
+        return mc_forward_fast(model, images, num_samples, masks)
     x = images.permute(0, 3, 1, 2).repeat(num_samples, 1, 1, 1)
-    cls, box = model.predict_heads(model.features(x, masks), masks)
-    return ([_nhwc(t).reshape(num_samples, b, *t.shape[2:], t.shape[1]) for t in cls],
-            [_nhwc(t).reshape(num_samples, b, *t.shape[2:], t.shape[1]) for t in box])
+    outs = _nhwc(model.predict_heads(model.features(x, masks), masks))
+    return split_samples(outs, num_samples, b)
+
+
+class EfficientDetModel(EfficientDetNet):
+    """``EfficientDetNet`` with the preprocessing and the post-processing
+    in one call, as the JAX package's ``EfficientDetModel``."""
+
+    def forward(self, raw_images: torch.Tensor, masks: Optional[ChannelDropout] = None,
+                pre_mode: Optional[str] = "infer", post_mode: Optional[str] = "global"):
+        """``pre_mode="infer"``: raw [B, H, W, 3] images are normalised and
+        resized onto the network's canvas (None: ``raw_images`` already
+        are). One pass of the network (dropout only where ``masks`` is
+        given). ``post_mode="global"``: ``postprocess_global``; another
+        mode (``"per_class"``): ``per_class_nms``; both return the packed
+        tuple followed by any segmentation logits. ``post_mode=None``, or
+        no object-detection head: the raw NHWC outputs."""
+        cfg = self.config
+        scales = None
+        images = raw_images
+        if pre_mode == "infer":
+            images, scales = preprocess_images(raw_images, cfg.image_size, cfg.mean_rgb,
+                                               cfg.stddev_rgb)
+            images = images.to(self.backbone.stem_conv.weight.dtype)
+        outs = super().forward(images, masks)
+        if post_mode is None or "object_detection" not in cfg.heads:
+            return outs
+        fn = postprocess_global if post_mode == "global" else per_class_nms
+        det = fn(cfg, list(outs[0]), list(outs[1]), image_scales=scales)
+        return det.packed() + tuple(outs[2:])
 
 
 def preprocess_images(raw_images: torch.Tensor, image_size, mean_rgb, stddev_rgb

@@ -1,9 +1,11 @@
-"""Class / box prediction heads in PyTorch: port of ``udal_tpu/models/heads.py``.
+"""Class / box / segmentation heads in PyTorch: port of ``udal_tpu/models/heads.py``.
 
 ``box_class_repeats`` conv→BN→act blocks whose convs are shared across
 pyramid levels, with a BatchNorm per (repeat, level); MC dropout
 (channel-wise) after each activation; the focal-loss prior bias on the
-class logits; 8·A box channels under loss attenuation.
+class logits; 8·A box channels under loss attenuation. The segmentation
+head decodes the pyramid from its coarsest level up with transposed convs
+that reproduce flax's ``ConvTranspose(padding="SAME")``.
 
 Flax names these scopes ``class-0``, ``class-0-bn-3``, ``class-predict`` —
 hyphens that cannot be Python attributes — so the heads are
@@ -14,9 +16,10 @@ the flax paths.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from udal_tpu_torch.models.bifpn import SeparableConv
@@ -104,3 +107,60 @@ class BoxNet(_Head):
                  mc_dropoutrate: float = 0.0):
         super().__init__("box", 4 * num_anchors, num_filters, num_levels, repeats,
                          separable_conv, act_type, survival_prob, mc_dropoutrate)
+
+
+def conv_transpose_same_pads(k: int, s: int) -> Tuple[int, int]:
+    """(before, after) padding of the stride-dilated input in
+    ``jax.lax.conv_transpose(padding="SAME")``, from ``jax.lax``'s
+    ``_conv_transpose_padding``: the output is s times the input."""
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    return pad_a, pad_len - pad_a
+
+
+class ConvTransposeSame(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(kernel, strides, padding="SAME")`` (with
+    ``transpose_kernel=False``) on NCHW tensors.
+
+    flax dilates the input by the stride, pads it by
+    ``conv_transpose_same_pads`` and correlates with its [k, k, in, out]
+    kernel as it is. ``conv_transpose2d`` with no padding pads by k - 1 on
+    both sides and correlates with the spatially flipped weight, so the
+    weight here is flax's kernel flipped in both spatial axes, laid out
+    [in, out, k, k] (``convert.py``), and the k - 1 padding is cut (or
+    extended with zeros) to flax's before the bias is added.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 2):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding=0, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.kernel_size[0], self.stride[0]
+        a, b = conv_transpose_same_pads(k, s)
+        y = F.conv_transpose2d(x, self.weight, None, self.stride)
+        y = F.pad(y, (a - (k - 1), b - (k - 1)) * 2)
+        return y + self.bias.to(y.dtype)[:, None, None]
+
+
+class SegmentationHead(nn.Module):
+    """Transposed-conv decoder: from the coarsest level up, each step
+    doubles the resolution (``up{i}``, ``bn{i}``, act) and adds the next
+    finer level; ``logits`` doubles it once more. NCHW levels in, NCHW
+    logits [B, seg_num_classes, 2·H_min, 2·W_min] out. No dropout."""
+
+    def __init__(self, num_classes: int, num_filters: int, num_levels: int,
+                 act_type: str = "swish"):
+        super().__init__()
+        self.act = activation_fn(act_type)
+        for i in range(num_levels - 1):
+            self.add_module(f"up{i}", ConvTransposeSame(num_filters, num_filters))
+            self.add_module(f"bn{i}", BatchNorm(num_filters))
+        self.logits = ConvTransposeSame(num_filters, num_classes)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        x = feats[-1]
+        for i, feat in enumerate(reversed(feats[:-1])):
+            x = self.act(getattr(self, f"bn{i}")(getattr(self, f"up{i}")(x)))
+            x = x + feat
+        return self.logits(x)

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from udal_tpu_torch.models.efficientdet import EfficientDetNet, Outputs
+from udal_tpu_torch.models.efficientdet import EfficientDetNet, Outputs, split_samples
 from udal_tpu_torch.models.efficientnet import ChannelDropout, activation_fn
 from udal_tpu_torch.ops.fused_dw import fold_bn, fused_depthwise
 
@@ -107,12 +107,10 @@ def folded_block0_all_samples(model: EfficientDetNet, x0: torch.Tensor,
 def mc_forward_fast(model: EfficientDetNet, images: torch.Tensor, num_samples: int,
                     masks: ChannelDropout) -> Outputs:
     """MC-dropout forward with the shared prefix + block-0 fold: NHWC images
-    → per-level [T, B, H, W, C] lists. The fold's masks are drawn first,
+    → outputs with [T, B, H, W, C] maps. The fold's masks are drawn first,
     then the per-sample sites in program order."""
     b = images.shape[0]
     x0, x0_mean = mc_shared_prefix(model, images)
     x1 = folded_block0_all_samples(model, x0, x0_mean, model.config.mc_dropoutrate,
                                    num_samples, drop=masks)
-    cls, box = model.forward_from_block1(x1, masks)
-    return ([t.reshape(num_samples, b, *t.shape[1:]) for t in cls],
-            [t.reshape(num_samples, b, *t.shape[1:]) for t in box])
+    return split_samples(model.forward_from_block1(x1, masks), num_samples, b)

@@ -6,7 +6,8 @@ sample axis). ``pre_nms`` takes the T-moments of the class logits, keeps
 the exact top-k candidates by max-class score, gathers and decodes only
 those; ``postprocess_global`` runs soft-NMS (the CUDA kernel for CUDA
 tensors, the plain version for CPU tensors) and packs the result as the
-JAX package does.
+JAX package does; ``per_class_nms`` runs the same kernel once on boxes
+shifted apart by class.
 """
 
 from __future__ import annotations
@@ -145,9 +146,11 @@ def pre_nms(config, cls_outputs, box_outputs, pre_nms_topk: int = 0):
     sigma_mc = None
     method = config.uncert_adjust_method
     if loss_att and not mc_box:
-        boxes, sigma_al = decode_uncert(box_mu, sigma_al_g, anchor_sel, method=method)
+        boxes, sigma_al = decode_uncert(box_mu, sigma_al_g, anchor_sel, method=method,
+                                        n_samples=config.decode_nsamples)
     elif mc_box and loss_att:
-        boxes_t, sig_t = decode_uncert(box_mu, sigma_al_g, anchor_sel, method=method)
+        boxes_t, sig_t = decode_uncert(box_mu, sigma_al_g, anchor_sel, method=method,
+                                       n_samples=config.decode_nsamples)
         boxes, sigma_mc = mc_moments(boxes_t)
         sigma_al = torch.mean(sig_t.to(torch.float32), dim=0)
     elif mc_box:
@@ -170,38 +173,50 @@ def pre_nms(config, cls_outputs, box_outputs, pre_nms_topk: int = 0):
                 logits=f32(gather_cls(cls_acr)) if config.enable_softmax else None)
 
 
-def postprocess_global(config, cls_outputs, box_outputs, image_scales=None,
-                       pre_nms_topk: int = 0) -> Detections:
-    """Global soft-NMS post-processing of per-level outputs → Detections."""
-    pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk)
-    scores = torch.sigmoid(pn["scores_logits"])
-
+def _nms(config, boxes: torch.Tensor, scores: torch.Tensor) -> nms_lib.NMSResult:
+    """Soft-NMS of [B, M] candidates with the config's method and K: the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     nms_configs = config.nms_configs
     iou_thr, score_thr, sigma = nms_lib.nms_from_config(
         nms_configs if isinstance(nms_configs, dict) else nms_configs.as_dict())
     k = nms_configs.get("max_output_size") or 100
-    res = cuda_nms.batched_soft_nms(pn["boxes"].contiguous(), scores.contiguous(), k,
-                                    iou_thr, score_thr, sigma)
+    return cuda_nms.batched_soft_nms(boxes.contiguous(), scores.contiguous(), k,
+                                     iou_thr, score_thr, sigma)
 
-    def gather(t):           # [B, M, ·] at the picks -> [B, K, ·]
-        if t is None:
-            return None
-        idx = res.indices.reshape(*res.indices.shape, *([1] * (t.dim() - 2)))
-        return t.gather(1, idx.expand(-1, -1, *t.shape[2:]))
 
-    boxes = gather(pn["boxes"])
-    classes = gather(pn["classes"]).to(boxes.dtype) + CLASS_OFFSET
-    sigma_al = gather(pn["sigma_al"])
-    sigma_mc = gather(pn["sigma_mc"])
-    sigma_cls = gather(pn["sigma_cls"])
-    logits = gather(pn["logits"])
+def _gather(t: Optional[torch.Tensor], indices: torch.Tensor) -> Optional[torch.Tensor]:
+    """[B, M, ·] at the picks [B, K] -> [B, K, ·]."""
+    if t is None:
+        return None
+    idx = indices.reshape(*indices.shape, *([1] * (t.dim() - 2)))
+    return t.gather(1, idx.expand(-1, -1, *t.shape[2:]))
+
+
+def _clip(config, boxes: torch.Tensor) -> torch.Tensor:
+    """Boxes clipped to the input resolution."""
+    h, w = anchor_lib.from_config(config).image_size
+    return torch.minimum(torch.clamp_min(boxes, 0.0),
+                         torch.tensor([h, w, h, w], dtype=boxes.dtype, device=boxes.device))
+
+
+def _scales(image_scales, boxes: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(image_scales, device=boxes.device).to(boxes.dtype)[:, None, None]
+
+
+def postprocess_global(config, cls_outputs, box_outputs, image_scales=None,
+                       pre_nms_topk: int = 0) -> Detections:
+    """Global soft-NMS post-processing of per-level outputs → Detections."""
+    pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk)
+    res = _nms(config, pn["boxes"], torch.sigmoid(pn["scores_logits"]))
+    boxes = _gather(pn["boxes"], res.indices)
+    classes = _gather(pn["classes"], res.indices).to(boxes.dtype) + CLASS_OFFSET
+    sigma_al = _gather(pn["sigma_al"], res.indices)
+    sigma_mc = _gather(pn["sigma_mc"], res.indices)
 
     # clip to input resolution then scale back to the original image
-    h, w = anchor_lib.from_config(config).image_size
-    boxes = torch.minimum(torch.clamp_min(boxes, 0.0),
-                          torch.tensor([h, w, h, w], dtype=boxes.dtype, device=boxes.device))
+    boxes = _clip(config, boxes)
     if image_scales is not None:
-        s = torch.as_tensor(image_scales, device=boxes.device).to(boxes.dtype)[:, None, None]
+        s = _scales(image_scales, boxes)
         boxes = boxes * s
         if sigma_al is not None:
             sigma_al = sigma_al * s
@@ -210,9 +225,52 @@ def postprocess_global(config, cls_outputs, box_outputs, image_scales=None,
 
     # zero out invalid slots for determinism
     m = res.valid[..., None].to(boxes.dtype)
+    sigma_cls = _gather(pn["sigma_cls"], res.indices)
     return Detections(boxes=boxes * m, scores=res.scores * res.valid.to(boxes.dtype),
                       classes=classes * m[..., 0], valid_len=res.valid_len,
                       sigma_al=None if sigma_al is None else sigma_al * m,
                       sigma_mc=None if sigma_mc is None else sigma_mc * m,
                       sigma_cls=None if sigma_cls is None else sigma_cls * m,
-                      logits=logits)
+                      logits=_gather(pn["logits"], res.indices))
+
+
+def per_class_nms(config, cls_outputs, box_outputs, image_scales=None,
+                  pre_nms_topk: int = 0) -> Detections:
+    """Per-class soft-NMS: each candidate is shifted by its class times
+    2·max(h, w), so one NMS never suppresses across classes; the top
+    ``MAX_DETECTION_POINTS`` candidates unless ``pre_nms_topk`` says
+    otherwise.
+
+    As in the JAX package, only the boxes are scaled by ``image_scales``
+    and zeroed at invalid slots: the σ outputs and logits are neither
+    scaled nor masked (``postprocess_global`` does both).
+    """
+    pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk or MAX_DETECTION_POINTS)
+    h, w = anchor_lib.from_config(config).image_size
+    offset = float(max(h, w)) * 2.0
+    shifted = pn["boxes"] + pn["classes"][..., None].to(pn["boxes"].dtype) * offset
+    res = _nms(config, shifted, torch.sigmoid(pn["scores_logits"]))
+
+    boxes = _clip(config, _gather(pn["boxes"], res.indices))
+    classes = _gather(pn["classes"], res.indices).to(boxes.dtype) + CLASS_OFFSET
+    if image_scales is not None:
+        boxes = boxes * _scales(image_scales, boxes)
+    m = res.valid[..., None].to(boxes.dtype)
+    return Detections(boxes=boxes * m, scores=res.scores * m[..., 0],
+                      classes=classes * m[..., 0], valid_len=res.valid_len,
+                      sigma_al=_gather(pn["sigma_al"], res.indices),
+                      sigma_mc=_gather(pn["sigma_mc"], res.indices),
+                      sigma_cls=_gather(pn["sigma_cls"], res.indices),
+                      logits=_gather(pn["logits"], res.indices))
+
+
+def generate_detections(config, cls_outputs, box_outputs, image_scales, image_ids,
+                        pre_nms_topk: int = 0) -> torch.Tensor:
+    """[B, K, 7] rows of [image_id, x, y, w, h, score, class] from the
+    global post-processing."""
+    det = postprocess_global(config, cls_outputs, box_outputs, image_scales, pre_nms_topk)
+    ymin, xmin, ymax, xmax = det.boxes.unbind(-1)
+    ids = torch.as_tensor(image_ids, device=det.boxes.device).to(det.boxes.dtype)[:, None] \
+        * torch.ones_like(det.scores)
+    return torch.stack([ids, xmin, ymin, xmax - xmin, ymax - ymin, det.scores, det.classes],
+                       dim=-1)
