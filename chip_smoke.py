@@ -61,7 +61,12 @@ exit code:
    with warp parameters), ``EfficientDetModel`` with per-class NMS and a
    2-member ensemble; detections agree as matched sets, and the kernels
    ran on the card only (the depthwise on its fast path), as many times as
-   each path launches them.
+   each path launches them. Then one f32 train step (dropout off, TF32
+   off) from the same weights and batch on the CPU and on the card: the
+   losses to 1e-4, the gradients as a tree to 1e-2 relative L2 and each
+   leaf that is not rounding noise to 3e-2, no kernel launched in the
+   step, and the stepped models' serves agree as matched sets (1/15/1 on
+   the card).
 6. the packed-layout microbench (``udal_tpu_torch.tools.perf_packed``, the
    port of ``tools/perf_packed.py``): ``check`` at the tool's shapes (the
    script's references; each of the five kernels against its plain
@@ -86,6 +91,20 @@ exit code:
      [8, 512, 1024, 3] uint8: 5/75/1 launches a call;
    - ``EfficientDetModel(post_mode="per_class")`` at the KITTI
      configuration: one soft-NMS launch a call.
+8. training at KITTI's operating point, full width (the overrides of
+   ``configs/train/allclasses_mcdropout_lossatt.yaml``: 7 classes,
+   1024x512, MC dropout 0.05, loss attenuation, MSE box loss x100, bf16,
+   no EMA; batch 8 from ``configs/train/train_runner.ini``; SGD 0.9, cosine
+   with warmup, clip 10; random weights from a seed): ``train_and_evaluate``
+   for 2 epochs x 5 steps with a validation step and a checkpoint an epoch,
+   on host-made uint8 frames with 1-8 boxes each (targets assigned on the
+   card): finite losses, the validation steps' kernel launches (1/15/0 each;
+   the train steps launch none), ms/step (median of steps 2-10, each timed
+   to a synchronisation), img/s, peak memory, the first and last loss, the
+   learning rates. A second call resumes from the epoch-2 checkpoint for a
+   third epoch; the trained weights then serve (MC T=10, bf16) with 1/15/1
+   launches a call and finite detections. With ``--profile``, a
+   torch.profiler split of two train steps and the card's idle share.
    Then the script's total time.
 
 The line before the last is a JSON summary of the kernels: each with its
@@ -104,6 +123,7 @@ function where there is one. The last line is ``{"ok": true, "device":
 import itertools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -121,8 +141,11 @@ from udal_tpu_torch.models.ensemble import init_ensemble, stack_variables
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
                                                 activation_fn, backbone_spec,
                                                 block_input_sizes)
+from udal_tpu_torch.data.synthetic import synthetic_batch
 from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms, packed
 from udal_tpu_torch.tools import perf_packed
+from udal_tpu_torch.train import loop, train_lib
+from udal_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, swap_in_ema
 
 MAIN_PATH = dict(image_size="1024x512", num_classes=8, loss_attenuation=True,
                  mc_dropout=True, mc_dropoutrate=0.05, mc_dropoutsamp=10)
@@ -138,6 +161,15 @@ BDD = ("configs/train/allclasses_lossatt_BDD.yaml", dict(
     num_classes=10, image_size="1024x512", moving_average_decay=0, mixed_precision=True,
     map_freq=20, label_map="bdd", save_freq=20, enable_softmax=True, loss_attenuation=True,
     box_loss_weight=100.0, boxloss_type="MSE"))
+# phase 8: KITTI's training operating point (the overrides of the MC-dropout +
+# loss-attenuation hparams file, and the runner's batch)
+KITTI_TRAIN = ("configs/train/allclasses_mcdropout_lossatt.yaml", dict(
+    num_classes=7, image_size="1024x512", moving_average_decay=0, mixed_precision=True,
+    map_freq=20, label_map="kitti", save_freq=20, enable_softmax=True, mc_dropout=True,
+    mc_dropoutrate=0.05, loss_attenuation=True, box_loss_weight=100.0, boxloss_type="MSE"))
+KITTI_RUNNER = ("configs/train/train_runner.ini", dict(batch_size=8))
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 5   # cut from the runner's 500 epochs of 748 steps
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 KITTI_NATIVE = (375, 1242)     # a KITTI frame's native size
 ENSEMBLE_MEMBERS = 5           # BASELINE config #3
 BATCH, N_CAND, K = 8, 5000, 100
@@ -714,7 +746,55 @@ def phase5(dev):
         phase(5, f"128x128 f32 {path}: card (kernels, launches {'/'.join(map(str, want))}, "
                  f"fused_dw on its fast path) and CPU (plain) detections agree as matched "
                  f"sets, valid_len {outs[0][3].tolist()}, max score diff {worst:.2e}")
+    train_parity(dev, small_config({**deterministic, "batch_size": 2}), state, images)
     torch.cuda.empty_cache()
+
+
+def train_parity(dev, config, state, images):
+    """Phase 5: one f32 train step (dropout off) from the same weights and
+    batch on the CPU and on the card, TF32 off: the losses to 1e-4
+    relative, the gradients as a tree to 1e-2 (relative L2) and each leaf
+    whose norm is 1% of the largest's or more to 3e-2 of its largest value
+    (the f32 sums run in other orders through an ill-conditioned random
+    network: tests/test_torch_train_step.py measures the port's own f32
+    gradients against its f64 ones); no kernel launches in the step. Then
+    the stepped models' eval serves agree as matched sets (the card's
+    through the kernels, 1/15/1)."""
+    batch = synthetic_batch(np.random.RandomState(9), 2, 128, 128, config.num_classes)
+    runs = {}
+    for device in ("cpu", dev):
+        st, schedule = train_lib.create_train_state(config, 10, device=device, state_dict=state)
+        reset_counts()
+        _, vals = train_lib.train_step(config, schedule, 10, st, *batch)
+        if counts() != (0, 0, 0):
+            raise AssertionError(f"a train step on {device} launched kernels: {counts()}")
+        grads = {n: p.grad.detach().cpu() for n, p in st.model.named_parameters()}
+        driver = ServingDriver(config, st.model.state_dict(), dtype=torch.float32,
+                               device=device)
+        reset_counts()
+        serve = driver.serve_preprocessed(images)[:4]
+        runs[str(device)] = ({k: float(v) for k, v in vals.items()}, grads, serve, counts())
+    (cpu_vals, cpu_grads, cpu_serve, _), (vals, grads, serve, launches) = runs.values()
+    for k, v in cpu_vals.items():
+        if abs(vals[k] - v) > 1e-4 * abs(v) + 1e-7:
+            raise AssertionError(f"train step {k}: card {vals[k]} vs CPU {v}")
+    err = sum(float((grads[n] - g).square().sum()) for n, g in cpu_grads.items()) ** 0.5
+    norm = sum(float(g.square().sum()) for g in cpu_grads.values()) ** 0.5
+    largest = max(float(g.norm()) for g in cpu_grads.values())
+    worst = max(float((grads[n] - g).abs().max() / g.abs().max())
+                for n, g in cpu_grads.items() if float(g.norm()) >= 1e-2 * largest)
+    if err > 1e-2 * norm or worst > 3e-2:
+        raise AssertionError(f"train step gradients: relative L2 {err / norm:.2e}, worst leaf "
+                             f"{worst:.2e}")
+    if launches != (1, 15, 1):
+        raise AssertionError(f"serve of the stepped model launched {launches}, want 1/15/1")
+    diff = matched_sets(serve, cpu_serve, "stepped model: cuda vs cpu")
+    phase(5, f"128x128 f32 train step (dropout off, TF32 off), card vs CPU: loss "
+             f"{vals['loss']:.6f} vs {cpu_vals['loss']:.6f}, gradient norm "
+             f"{vals['gradient_norm']:.6f} vs {cpu_vals['gradient_norm']:.6f}; gradients "
+             f"relative L2 {err / norm:.2e}, worst large leaf {worst:.2e}; no kernel in the "
+             f"step; the stepped models' serves agree as matched sets (card 1/15/1), max score "
+             f"diff {diff:.2e}")
 
 
 def timed_calls(fn):
@@ -854,6 +934,117 @@ def phase7(dev, smi, profiled=False):
     torch.cuda.empty_cache()
 
 
+def phase8(dev, smi, profiled=False):
+    """KITTI's training operating point at full width: ``train_and_evaluate``
+    for TRAIN_EPOCHS epochs of TRAIN_STEPS steps with a validation step an
+    epoch and a checkpoint an epoch, then a second call that resumes from
+    the checkpoint and trains one epoch more; then the trained weights
+    served. Batches: host-made uint8 frames with 1-8 boxes each, from a
+    seed; the targets are assigned on the card. Each step is timed to a
+    synchronisation after it (a wrapper around the loop's ``train_step``),
+    so the loop's host run-ahead is not measured."""
+    path, overrides = KITTI_TRAIN
+    cfg = get_detection_config("efficientdet-d0").override(overrides)
+    cfg.override(KITTI_RUNNER[1], allow_new_keys=True)
+    cfg.override(dict(num_epochs=TRAIN_EPOCHS, save_freq=1))
+    h, w = parse_image_size(cfg.image_size)
+    rng = np.random.RandomState(10)
+    data = [synthetic_batch(rng, cfg.batch_size, h, w, cfg.num_classes) for _ in range(4)]
+
+    def batches():
+        for i in itertools.count():
+            yield data[i % len(data)]
+
+    steps, real_step = [], loop.train_step
+
+    def timed_step(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_step(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, float(out[1]["loss"]),
+                      float(out[1]["learning_rate"])))
+        return out
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    logs = []
+    loop.train_step = timed_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        hist = loop.train_and_evaluate(cfg, batches(), TRAIN_STEPS, str(TRAIN_DIR),
+                                       val_iter_fn=batches, val_steps=1, device=dev,
+                                       log_fn=logs.append)
+        launches, peak = counts(), torch.cuda.max_memory_allocated() / 2**30
+        # the validation steps run in eval mode through the kernels; train steps run none
+        if launches != (TRAIN_EPOCHS, 15 * TRAIN_EPOCHS, 0):
+            raise AssertionError(f"training: (fused_dw, fused_expand_dw, soft_nms) launches "
+                                 f"{launches}, want {TRAIN_EPOCHS}/{15 * TRAIN_EPOCHS}/0 (the "
+                                 f"validation steps only)")
+        losses = [loss for _, loss, _ in steps] + hist["loss"] + hist["val_loss"]
+        if len(steps) != TRAIN_EPOCHS * TRAIN_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"training: {len(steps)} steps, losses {losses}")
+        if latest_checkpoint(str(TRAIN_DIR)) != TRAIN_EPOCHS:
+            raise AssertionError(f"no checkpoint of epoch {TRAIN_EPOCHS} in {TRAIN_DIR}")
+        ms = statistics.median(t for t, _, _ in steps[1:]) * 1e3
+        phase(8, f"KITTI training ({path}, {KITTI_RUNNER[0]} batch {cfg.batch_size}): d0 "
+                 f"{h}x{w}, {cfg.num_classes} classes, MC dropout {cfg.mc_dropoutrate}, loss "
+                 f"attenuation, MSE box loss x{cfg.box_loss_weight}, bf16 autocast, SGD "
+                 f"{cfg.momentum}, cosine with warmup, clip {cfg.clip_gradients_norm}: "
+                 f"train_and_evaluate {TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps + 1 "
+                 f"validation step an epoch: {ms:.1f} ms/step ({cfg.batch_size / ms * 1e3:.1f} "
+                 f"img/s; median of steps 2-{len(steps)}, each timed to a synchronisation; "
+                 f"first {steps[0][0] * 1e3:.0f} ms), peak {peak:.2f} GiB; loss first "
+                 f"{steps[0][1]:.4f}, last {steps[-1][1]:.4f}, epochs {hist['loss']}, "
+                 f"val {hist['val_loss']}; learning rates "
+                 f"{[round(lr, 6) for _, _, lr in steps]}; launches {launches}; {smi}")
+        for line in logs:
+            phase(8, line)
+        if profiled:
+            state = hist["final_state"]
+            schedule = train_lib.create_train_state(cfg, TRAIN_STEPS, device=dev)[1]
+            profile_calls("phase 8 train step", lambda: real_step(
+                cfg, schedule, TRAIN_STEPS, state, *data[0]), ms)
+
+        # resume from the epoch-2 checkpoint for one epoch more
+        cfg.num_epochs = TRAIN_EPOCHS + 1
+        steps.clear()
+        reset_counts()
+        resumed = loop.train_and_evaluate(cfg, batches(), TRAIN_STEPS, str(TRAIN_DIR),
+                                          val_iter_fn=batches, val_steps=1, device=dev,
+                                          log_fn=logs.append)
+    finally:
+        loop.train_step = real_step
+    state = resumed["final_state"]
+    if not (logs[-1].startswith(f"epoch {TRAIN_EPOCHS + 1}/") and len(steps) == TRAIN_STEPS
+            and state.step == (TRAIN_EPOCHS + 1) * TRAIN_STEPS and counts() == (1, 15, 0)):
+        raise AssertionError(f"resume: {logs[-1]!r}, {len(steps)} steps, step {state.step}, "
+                             f"launches {counts()}")
+    phase(8, f"resumed at epoch {TRAIN_EPOCHS} from {TRAIN_DIR.name}/ckpt_{TRAIN_EPOCHS}: "
+             f"{logs[-1]}; step {state.step}")
+    del state, resumed, hist
+    torch.cuda.empty_cache()
+
+    # serve the trained weights (the last checkpoint's, EMA swapped in where kept)
+    trained = swap_in_ema(load_checkpoint(str(TRAIN_DIR), latest_checkpoint(str(TRAIN_DIR))))
+    server = ServingDriver(cfg, trained, cfg.batch_size, device=dev)
+    raw = np.random.RandomState(11).randint(0, 256, (cfg.batch_size, h, w, 3)).astype(np.uint8)
+    out, serve_ms, _, launches, _ = timed_calls(lambda: server.serve(raw))
+    what = "serve of the trained weights"
+    assert_launches(what, launches, (1, 15, 1))
+    c = cfg.num_classes
+    assert_detections(what, out, [(cfg.batch_size, K, 12), (cfg.batch_size, K),
+                                  (cfg.batch_size, K, 1 + c), (cfg.batch_size,),
+                                  (cfg.batch_size, K, c)])
+    if int(out[3].max()) <= 0:
+        raise AssertionError(f"{what}: no detections")
+    phase(8, f"{what} (prepare_inference, MC T={cfg.mc_dropoutsamp}, bf16): launches in "
+             f"{SERVE_CALLS} calls {launches}; valid_len {out[3].tolist()}; {serve_ms:.1f} "
+             f"ms/batch; {smi}")
+    del server, out
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -970,6 +1161,11 @@ def main():
     t0 = time.perf_counter()
     phase7(dev, smi, "--profile" in sys.argv[1:])
     phase(7, f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 8. training at KITTI's operating point, full width -------------------
+    t0 = time.perf_counter()
+    phase8(dev, smi, "--profile" in sys.argv[1:])
+    phase(8, f"done in {time.perf_counter() - t0:.1f} s")
 
     kernel_ms, plain_ms = times["gaussian"]
     # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per

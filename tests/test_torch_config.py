@@ -49,9 +49,9 @@ def test_geometry_helpers_equal(size, level):
     assert torch_config.get_feat_sizes(size, level) == jax_config.get_feat_sizes(size, level)
 
 
-@pytest.mark.parametrize("name", ["KITTI_HEAD", "BDD"])
+@pytest.mark.parametrize("name", ["KITTI_HEAD", "BDD", "KITTI_TRAIN"])
 def test_chip_smoke_inference_configs_equal_their_yaml(name):
-    """``chip_smoke.py`` carries the overrides of two config files in code
+    """``chip_smoke.py`` carries the overrides of three config files in code
     (the card has no yaml): the same keys as the file, and the port's d0
     config overridden with them equals ``udal_tpu.config``'s overridden
     with the file, at every key the file sets."""
@@ -70,3 +70,21 @@ def test_chip_smoke_inference_configs_equal_their_yaml(name):
     for key in keys:
         assert got[key] == want[key], key
         assert type(got[key]) is type(want[key]), key
+
+
+def test_chip_smoke_training_batch_equals_the_runner():
+    """Phase 8's batch is the KITTI runner's, whose model is d0 and whose
+    hparams file is the one phase 8 carries."""
+    import configparser
+    import pathlib
+
+    import chip_smoke
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    path, runner = chip_smoke.KITTI_RUNNER
+    ini = configparser.ConfigParser()
+    ini.read(root / path)
+    assert runner == {"batch_size": ini.getint("Hyperparameters", "batch_size")} == \
+        {"batch_size": 8}
+    assert ini["Hyperparameters"]["hparams"] == chip_smoke.KITTI_TRAIN[0]
+    assert ini["Paths"]["model_name"] == "efficientdet-d0"

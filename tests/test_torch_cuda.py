@@ -694,3 +694,157 @@ def test_ensemble_serve_launches_each_members_kernels(no_tf32):
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (2, 30, 1)
     assert_same_detection_sets(got, want)
+
+
+def train_state(device, weights=None, **extra):
+    """A train state of the small config (batch 2, no warmup, no dropout
+    unless ``extra`` asks) from ``weights``, by default ``random_state(3)``,
+    and its schedule."""
+    from udal_tpu_torch.config import get_detection_config
+    from udal_tpu_torch.train.train_lib import create_train_state
+
+    cfg = get_detection_config("efficientdet-d0").override(
+        {**SMALL, "lr_warmup_epoch": 0.0, "batch_size": 2, **extra}, allow_new_keys=True)
+    state, schedule = create_train_state(cfg, 10, device=device, state_dict=(
+        random_state(3) if weights is None else weights))
+    return cfg, state, schedule
+
+
+def train_batch(seed):
+    from udal_tpu_torch.data.synthetic import synthetic_batch
+
+    return synthetic_batch(np.random.RandomState(seed), 2, 128, 128, 8)
+
+
+def step_grads(device, seed=5, weights=None, **extra):
+    """One train step on ``train_batch(seed)``: (its values, its gradients
+    on the host by name)."""
+    from udal_tpu_torch.train.train_lib import train_step
+
+    cfg, state, schedule = train_state(device, weights, **extra)
+    _, vals = train_step(cfg, schedule, 10, state, *train_batch(seed))
+    return ({k: float(v) for k, v in vals.items()},
+            {n: p.grad.detach().float().cpu() for n, p in state.model.named_parameters()})
+
+
+def tree_relative_l2(got, want):
+    err = sum(float((got[n] - w).square().sum()) for n, w in want.items()) ** 0.5
+    return err / sum(float(w.square().sum()) for w in want.values()) ** 0.5
+
+
+@pytest.mark.cuda
+def test_f32_train_step_on_the_card_matches_the_cpu(cuda):
+    """f32 at train_matmul_precision "highest": the step turns TF32 off
+    for itself (and restores the flag), so the card's step matches the
+    CPU's: losses to 1e-4 relative, the gradients' tree to 1e-2 relative
+    L2 (tests/test_torch_train_step.py says why not closer)."""
+    torch.backends.cudnn.allow_tf32 = True
+    want_vals, want = step_grads("cpu")
+    got_vals, got = step_grads(cuda)
+    assert torch.backends.cudnn.allow_tf32
+    for k, v in want_vals.items():
+        assert abs(got_vals[k] - v) <= 1e-4 * abs(v) + 1e-7, k
+    assert tree_relative_l2(got, want) <= 1e-2
+
+
+def bf16_churn(device, seeds, **extra):
+    """Over the batches of ``seeds``, two distances from the f32 step on
+    ``device`` (the same weights and dropout draws): the bf16 step's, and
+    that of an f32 step whose weights were only rounded to bf16 (the
+    network's own swing under a perturbation of that size). Each as (the
+    gradients' mean relative L2, the loss's mean relative difference), and
+    each batch's pair. Every bf16 value and gradient is finite."""
+    rounded = {k: v.to(torch.bfloat16).float() if v.is_floating_point() else v
+               for k, v in random_state(3).items()}
+    out = {"bf16": [], "rounded": []}
+    for seed in seeds:
+        v32, g32 = step_grads(device, seed, **extra)
+        v16, g16 = step_grads(device, seed, mixed_precision=True, **extra)
+        assert all(np.isfinite(list(v16.values())))
+        assert all(bool(torch.isfinite(g).all()) for g in g16.values())
+        vr, gr = step_grads(device, seed, rounded, **extra)
+        for name, (v, g) in (("bf16", (v16, g16)), ("rounded", (vr, gr))):
+            out[name].append((tree_relative_l2(g, g32),
+                              abs(v["loss"] - v32["loss"]) / abs(v32["loss"])))
+    return ({k: tuple(float(x) for x in np.mean(v, axis=0)) for k, v in out.items()}, out)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_churns_no_more_than_rounded_weights(no_tf32):
+    """Mixed precision as phase 8 trains it (the config's σ floor of 0.01,
+    MC dropout 0.05), over eight batches: the bf16 step's distance from
+    the f32 step is at most 1.5x (gradients) and 2x (loss) the distance of
+    an f32 step whose weights were only rounded to bf16, as
+    tests/test_bf16_accuracy.py holds bf16 churn to a reference churn. At
+    this floor both are large (the gradients' near 1: the NLL's 1/σ² =
+    1e4, BatchNorm over two values at the 1x1 levels) and the loss's varies
+    tenfold from batch to batch; tests/test_torch_train_bf16.py holds the
+    port's bf16 step to JAX's own churn on the CPU."""
+    churn, batches = bf16_churn(no_tf32, range(5, 13), mc_dropout=True, mc_dropoutrate=0.05)
+    print(f"bf16-vs-f32 churn (gradients, loss): mean {churn}, each batch {batches}")
+    assert churn["bf16"][0] <= 1.5 * churn["rounded"][0], churn
+    assert churn["bf16"][1] <= 2.0 * churn["rounded"][1], churn
+
+
+@pytest.mark.cuda
+def test_a_freshly_built_model_serves_through_the_kernels(no_tf32):
+    """``EfficientDetModel`` built, loaded and moved to the card with no
+    ``.eval()`` is in eval mode (as JAX's ``train=False`` default): a call
+    launches 1/15/1, gives finite detections and leaves the running
+    statistics as they were."""
+    from udal_tpu_torch.config import get_detection_config
+    from udal_tpu_torch.models.efficientdet import EfficientDetModel
+
+    model = EfficientDetModel(get_detection_config("efficientdet-d0").override(SMALL))
+    model.load_state_dict(random_state(3))
+    model = model.to(no_tf32)
+    assert not any(m.training for m in model.modules())
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    frames = torch.from_numpy(np.random.RandomState(8).randint(0, 256, (2, 96, 160, 3))
+                              .astype(np.uint8)).to(no_tf32)
+    before = kernel_counts()
+    with torch.no_grad():
+        out = model(frames)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (1, 15, 1)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in out)
+    for k, v in stats.items():
+        assert torch.equal(model.state_dict()[k], v), k
+
+
+@pytest.mark.cuda
+def test_trained_model_serves_through_the_kernels(no_tf32):
+    """After MC-dropout train steps on the card (no kernel launched), eval
+    mode runs the fused kernels (1/15 a forward) and gives a fresh fold's
+    output; the serve of the trained weights launches 1/15/1."""
+    import copy
+
+    from udal_tpu_torch.apps.serving import ServingDriver
+    from udal_tpu_torch.train.train_lib import train_step
+
+    cfg, state, schedule = train_state(no_tf32, mc_dropout=True, mc_dropoutrate=0.05)
+    state.model.eval()
+    state.model.backbone.prepare_inference()
+    before = kernel_counts()
+    for seed in (5, 6):
+        train_step(cfg, schedule, 10, state, *train_batch(seed))
+    torch.cuda.synchronize()
+    assert kernel_counts() == before
+    x = torch.from_numpy(np.random.RandomState(7).uniform(-2, 2, (2, 128, 128, 3))
+                         .astype(np.float32)).to(no_tf32)
+    state.model.eval()
+    with torch.no_grad():
+        got = state.model(x)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (1, 15, 0)
+        fresh = copy.deepcopy(state.model)
+        fresh.backbone.prepare_inference()
+        want = fresh(x)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    driver = ServingDriver(cfg, state.model.state_dict(), device=no_tf32)
+    before = kernel_counts()
+    out = driver.serve_preprocessed(x.cpu().numpy())
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (1, 15, 1)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in out)

@@ -38,6 +38,27 @@ def test_serving_path_imports_no_jax_flax_yaml_or_jax_package():
     assert [m for m in out if _forbidden(m)] == []
 
 
+def test_training_path_imports_no_jax_flax_yaml_or_jax_package():
+    """The training modules (losses, schedules, the steps and the loop,
+    labels and synthetic batches, checkpoints and metrics) and their
+    entries load without JAX, flax, yaml or the JAX package."""
+    code = ("import sys, udal_tpu_torch.train.loop as loop, udal_tpu_torch.train.losses, "
+            "udal_tpu_torch.train.schedules, udal_tpu_torch.data.labels, "
+            "udal_tpu_torch.data.synthetic, udal_tpu_torch.utils.checkpoint, "
+            "udal_tpu_torch.utils.metrics_writer; "
+            "from udal_tpu_torch.train.train_lib import create_train_state, train_step, eval_step; "
+            "from udal_tpu_torch.convert import train_state_from_flax, train_state_to_flax; "
+            "from udal_tpu_torch.apps.serving import ServingDriver, load_ensemble_variables; "
+            "[loop.train_and_evaluate, ServingDriver.create_ensemble]; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    for module in ("torch", "udal_tpu_torch.train.train_lib", "udal_tpu_torch.data.labels",
+                   "udal_tpu_torch.utils.checkpoint", "udal_tpu_torch.ops.target_assign"):
+        assert module in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
 def test_packed_microbench_imports_no_jax_or_the_jax_script():
     """The port's packed-layout tool runs on the machine with the card."""
     code = ("import sys, udal_tpu_torch.tools.perf_packed, udal_tpu_torch.ops.packed; "

@@ -8,7 +8,9 @@ forward → global uncertainty post-processing with soft-NMS. The fused
 depthwise, fused expand + depthwise and soft-NMS run as CUDA kernels when
 the tensors live on a GPU. Eager PyTorch under ``inference_mode``.
 
-The entries follow the input reader's three batch contracts: raw images
+``create_ensemble`` builds a deep-ensemble driver from the members'
+training checkpoints (``utils/checkpoint.py``). The entries follow the
+input reader's three batch contracts: raw images
 (``serve``), normalised network-size f32 (``serve_preprocessed``),
 network-size uint8 (``serve_preprocessed_uint8``, normalised on the
 device) and native-size uint8 with warp parameters (the same entry; the
@@ -22,7 +24,7 @@ has only PyTorch and numpy.
 from __future__ import annotations
 
 import time
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +32,8 @@ from udal_tpu_torch.config import Config, get_detection_config, parse_image_size
 from udal_tpu_torch.models.efficientdet import (EfficientDetNet, init_flax_style,
                                                 mc_forward, preprocess_images)
 from udal_tpu_torch.models.efficientnet import ChannelDropout
-from udal_tpu_torch.models.ensemble import ensemble_forward, unstack_variables
+from udal_tpu_torch.models.ensemble import (ensemble_forward, stack_variables,
+                                            unstack_variables)
 from udal_tpu_torch.ops.image_ops import warp_resize_batch
 from udal_tpu_torch.ops.postprocess import Detections, postprocess_global
 
@@ -99,6 +102,16 @@ class ServingDriver:
             init_flax_style(model, torch.Generator().manual_seed(seed))
             state_dict = model.state_dict()
         return cls(config, state_dict, batch_size, **kwargs)
+
+    @classmethod
+    def create_ensemble(cls, config: Config, member_dirs: Sequence[str], batch_size: int = 1,
+                        use_ema: bool = True, **kwargs) -> "ServingDriver":
+        """Deep-ensemble driver from N members' checkpoint directories
+        (``utils.checkpoint``, as ``train.loop.train_and_evaluate`` writes
+        them): each member's latest checkpoint, EMA weights swapped in where
+        it has them, stacked and served with ``ensemble=True``."""
+        stacked = load_ensemble_variables(config, member_dirs, use_ema=use_ema)
+        return cls(config, stacked, batch_size, ensemble=True, **kwargs)
 
     # -- core program --------------------------------------------------------
 
@@ -225,3 +238,21 @@ class ServingDriver:
             sync()
             dt = (time.perf_counter() - t0) / iters
         return {"latency_ms": dt * 1e3, "fps": images.shape[0] / dt}
+
+
+def load_ensemble_variables(config: Config, member_dirs: Sequence[str],
+                            use_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """N members' state dicts from their latest checkpoints (EMA weights
+    swapped in when present and ``use_ema``), stacked on a leading axis for
+    ``ServingDriver(ensemble=True)``, which loads each into ``config``'s
+    model strictly."""
+    from udal_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, swap_in_ema
+
+    members = []
+    for d in member_dirs:
+        epoch = latest_checkpoint(d)
+        if epoch is None:
+            raise FileNotFoundError(f"no checkpoint in ensemble member {d}")
+        payload = load_checkpoint(d, epoch)
+        members.append(swap_in_ema(payload) if use_ema else payload["model"])
+    return stack_variables(members)

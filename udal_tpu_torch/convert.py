@@ -23,11 +23,18 @@ Flax scope names with hyphens (``class-0-bn-3``, ``box-predict``) are
 raises on a leftover on either side. ``flax_to_torch_stacked`` converts a
 deep ensemble's tree, whose leaves carry a leading member axis, into the
 stacked state dict ``ServingDriver(ensemble=True)`` takes.
+
+A training state goes both ways: ``train_state_from_flax`` loads a flax
+``TrainState``'s leaves (params, batch_stats, optax's SGD trace or Adam
+moments, the EMA and the step; numpy, or any array ``np.asarray`` takes)
+into the port's ``TrainState``, and ``train_state_to_flax`` gives them
+back as nested dicts. Optimizer buffers and the EMA are laid out as the
+parameters they follow (``params_to_flax``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,34 +97,126 @@ def flax_to_torch_stacked(params: Mapping, batch_stats: Mapping) -> Dict[str, to
     return {k: torch.stack([m[k] for m in members]) for k in members[0]}
 
 
+def _put(tree: Dict, path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _flax_leaf(mod: nn.Module, path, leaf: str, t: torch.Tensor):
+    """(is a batch statistic, flax path, value in flax's layout) of the
+    tensor ``t`` that sits as ``leaf`` of ``mod`` (or follows it)."""
+    v = t.detach().to(torch.float32).cpu().numpy()
+    if isinstance(mod, BatchNorm):
+        if leaf in ("weight", "bias"):
+            return False, path + ["bn", "scale" if leaf == "weight" else "bias"], v
+        return True, path + ["bn", leaf.replace("running_", "")], v
+    if leaf == "weight" and isinstance(mod, nn.ConvTranspose2d):
+        return False, path + ["kernel"], v[:, :, ::-1, ::-1].transpose(2, 3, 0, 1).copy()
+    if leaf == "weight":
+        return False, path + ["kernel"], v.transpose(2, 3, 1, 0)
+    return False, path + [leaf], v
+
+
 def torch_to_flax(model: nn.Module) -> Tuple[Dict, Dict]:
     """(params, batch_stats) as nested dicts of float32 numpy arrays: the
     inverse of ``flax_to_torch``."""
-    params: Dict = {}
-    batch_stats: Dict = {}
-
-    def put(tree, path, value):
-        for p in path[:-1]:
-            tree = tree.setdefault(p, {})
-        tree[path[-1]] = value
-
+    trees: Tuple[Dict, Dict] = ({}, {})
     for name, mod in model.named_modules():
         path = name.split(".") if name else []
         for leaf, t in list(mod.named_parameters(recurse=False)) + \
                 list(mod.named_buffers(recurse=False)):
-            v = t.detach().to(torch.float32).cpu().numpy()
-            if isinstance(mod, BatchNorm):
-                if leaf in ("weight", "bias"):
-                    put(params, path + ["bn", "scale" if leaf == "weight" else "bias"], v)
-                else:
-                    put(batch_stats, path + ["bn", leaf.replace("running_", "")], v)
-            elif leaf == "weight" and isinstance(mod, nn.ConvTranspose2d):
-                put(params, path + ["kernel"], v[:, :, ::-1, ::-1].transpose(2, 3, 0, 1).copy())
-            elif leaf == "weight":
-                put(params, path + ["kernel"], v.transpose(2, 3, 1, 0))
-            else:
-                put(params, path + [leaf], v)
-    return params, batch_stats
+            stat, fpath, v = _flax_leaf(mod, path, leaf, t)
+            _put(trees[stat], fpath, v)
+    return trees
+
+
+def params_to_flax(model: nn.Module, named: Mapping[str, torch.Tensor]) -> Dict:
+    """A flax params tree of tensors keyed by ``model``'s parameter names,
+    each laid out as the parameter it follows: a gradient, an optimizer
+    buffer, an EMA."""
+    tree: Dict = {}
+    for name, mod in model.named_modules():
+        path = name.split(".") if name else []
+        for leaf, _ in mod.named_parameters(recurse=False):
+            _, fpath, v = _flax_leaf(mod, path, leaf, named[".".join(path + [leaf])])
+            _put(tree, fpath, v)
+    return tree
+
+
+def _optax_part(opt_state, *fields: str):
+    """The element of an optax chain's state that has ``fields``."""
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    for part in parts:
+        if isinstance(part, Mapping) and all(f in part for f in fields):
+            return part
+        if all(hasattr(part, f) for f in fields):
+            return {f: getattr(part, f) for f in fields}
+    raise KeyError(f"no optax state with {fields} in {type(opt_state).__name__}")
+
+
+def train_state_from_flax(state, step, params: Mapping, batch_stats: Mapping, opt_state,
+                          ema_params: Optional[Mapping] = None):
+    """Load a flax ``TrainState``'s leaves into the port's ``state`` (built
+    for the same config and optimizer), in place, and return it.
+
+    ``opt_state`` is optax's state as restored (its chain's tuple of named
+    tuples) or as ``train_state_to_flax`` gives it: SGD's ``trace`` becomes
+    each parameter's ``momentum_buffer`` (optax starts it at 0, torch at the
+    first gradient: the same update); Adam's ``count``, ``mu`` and ``nu``
+    become ``step``, ``exp_avg`` and ``exp_avg_sq``."""
+    model, optimizer = state.model, state.optimizer
+    device = next(model.parameters()).device
+    load_flax(model, params, batch_stats)
+    model.to(device)
+    by_name = dict(model.named_parameters())
+
+    def follow(tree):     # a params-shaped tree → {parameter name: a tensor of its own}
+        # (flax_to_torch may share the arrays' memory: JAX's, read-only)
+        return {k: v.to(device, copy=True) for k, v in flax_to_torch(tree, {}).items()}
+
+    optimizer.state.clear()
+    if isinstance(optimizer, torch.optim.SGD):
+        for name, buf in follow(_optax_part(opt_state, "trace")["trace"]).items():
+            optimizer.state[by_name[name]] = {"momentum_buffer": buf}
+    elif isinstance(optimizer, torch.optim.Adam):
+        adam = _optax_part(opt_state, "count", "mu", "nu")
+        count = torch.tensor(float(np.asarray(adam["count"])))
+        nu = follow(adam["nu"])
+        for name, mu in follow(adam["mu"]).items():
+            optimizer.state[by_name[name]] = {"step": count.clone(), "exp_avg": mu,
+                                              "exp_avg_sq": nu[name]}
+    else:
+        raise TypeError(f"no optax counterpart for {type(optimizer).__name__}")
+    state.ema_params = None if ema_params is None else follow(ema_params)
+    state.step = int(np.asarray(step))
+    model.backbone.drop_folds()
+    return state
+
+
+def train_state_to_flax(state) -> Dict:
+    """The port's ``TrainState`` as flax trees of float32 numpy arrays:
+    {"step", "params", "batch_stats", "opt_state", "ema_params"}, with
+    ``opt_state`` {"trace"} for SGD (zeros before the first step) or
+    {"count", "mu", "nu"} for Adam."""
+    model, optimizer = state.model, state.optimizer
+    params, batch_stats = torch_to_flax(model)
+    named = dict(model.named_parameters())
+
+    def buffers(key):
+        return params_to_flax(model, {n: optimizer.state.get(p, {}).get(key, torch.zeros_like(p))
+                                      for n, p in named.items()})
+
+    if isinstance(optimizer, torch.optim.SGD):
+        opt_state = {"trace": buffers("momentum_buffer")}
+    else:
+        first = optimizer.state.get(next(iter(named.values())), {})
+        opt_state = {"count": np.asarray(int(first.get("step", 0)), np.int32),
+                     "mu": buffers("exp_avg"), "nu": buffers("exp_avg_sq")}
+    return {"step": state.step, "params": params, "batch_stats": batch_stats,
+            "opt_state": opt_state,
+            "ema_params": None if state.ema_params is None
+            else params_to_flax(model, state.ema_params)}
 
 
 def load_flax(model: nn.Module, params: Mapping, batch_stats: Mapping) -> nn.Module:

@@ -1,7 +1,11 @@
 """EfficientDet in PyTorch: port of ``udal_tpu/models/efficientdet.py``.
 
 Backbone → extra-level resampling → BiFPN → class/box (and segmentation)
-heads, raw per-level outputs. The JAX package's MC-dropout forward is a
+heads, raw per-level outputs. A model is built in eval mode, the serving
+forward (as the JAX modules default to ``train=False``); ``model.train()``
+gives the training forward (BatchNorm on batch statistics, MC dropout at
+every site from the mask source the caller passes, no kernel).
+The JAX package's MC-dropout forward is a
 ``vmap`` over dropout keys; here the T samples are a T·B batch dimension
 written out (t-major), with masks from an explicit ``ChannelDropout``
 source. With dropout in the heads only, the backbone and BiFPN run once at
@@ -73,8 +77,11 @@ class EfficientDetNet(nn.Module):
             mc_clsrate = cfg.mc_classheadrate or cfg.mc_dropoutrate
             mc_backbone = cfg.mc_dropoutrate
 
-        self.backbone = EfficientNet(backbone_spec(cfg.backbone_name), cfg.act_type,
-                                     mc_backbone)
+        # stochastic depth in the backbone, but never in b0's (as the JAX package)
+        survival_prob = 0.0 if "b0" in cfg.backbone_name else cfg.survival_prob
+        self.backbone = EfficientNet(backbone_spec(cfg.backbone_name,
+                                                   survival_prob=survival_prob or None),
+                                     cfg.act_type, mc_backbone)
         widths = [self.backbone.reduction_channels[l - 1]
                   for l in range(min_level, min(max_level, 5) + 1)]
         for level in range(6, max_level + 1):
@@ -103,6 +110,7 @@ class EfficientDetNet(nn.Module):
         if "segmentation" in cfg.heads:
             self.seg_head = SegmentationHead(cfg.seg_num_classes, cfg.fpn_num_filters,
                                              num_levels, cfg.act_type)
+        self.eval()
 
     def features(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                  start_block: int = 0) -> List[torch.Tensor]:

@@ -2,18 +2,24 @@
 
 Same block strings, width/depth rounding, SE layout and MC-dropout hooks
 (channel-wise spatial dropout after the expand and depthwise activations of
-every MBConv). Inference only: BatchNorm uses its running statistics and
-stochastic depth is a training-time op, so it is absent.
+every MBConv). The mode is PyTorch's: ``module.train()`` / ``module.eval()``.
+In eval mode BatchNorm uses its running statistics; in train mode it
+normalises with the batch's and updates the running ones as flax does, and
+a residual block drops its branch per sample (stochastic depth) when the
+spec sets a survival probability.
 
 Submodules carry the flax scope names (``stem_conv``, ``blocks_3``,
 ``depthwise_conv``, ``bn1`` ...), so ``convert.py`` maps a flax tree onto
 the state dict by renaming. Tensors are NCHW inside; convolutions use TF
 "SAME" padding, which is uneven at stride 2.
 
-An MBConv's front half (expand, bn0, act, mask, depthwise, bn1, act, mask
-and the SE squeeze) is one fused call: ``ops/fused_mbconv.py`` for blocks
-that expand, ``ops/fused_dw.py`` for those that do not. Each runs its CUDA
-kernel on a card and its plain PyTorch version on the CPU.
+In eval mode an MBConv's front half (expand, bn0, act, mask, depthwise,
+bn1, act, mask and the SE squeeze) is one fused call: ``ops/fused_mbconv.py``
+for blocks that expand, ``ops/fused_dw.py`` for those that do not. Each runs
+its CUDA kernel on a card and its plain PyTorch version on the CPU. The
+kernels take BatchNorm folded into their operands and have no backward, so
+train mode runs the unfused chain of the JAX module (cuDNN convolutions and
+PyTorch ops, as XLA runs the JAX training program).
 """
 
 from __future__ import annotations
@@ -185,20 +191,40 @@ def activation_fn(act_type: str) -> Callable[[torch.Tensor], torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW with flax's epsilon (1e-3): scale and
-    bias as parameters, the running mean and variance as buffers."""
+    """BatchNorm over NCHW with flax's semantics: epsilon 1e-3, scale and
+    bias as parameters, the running mean and variance as buffers.
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch's, reduced over (N, H, W) in f32 as flax reduces them:
+    the mean and the biased variance E[x²] − E[x]², clipped at 0; then it
+    moves the running ones toward them, r = momentum·r + (1 − momentum)·batch.
+    (``F.batch_norm(training=True)`` would move ``running_var`` toward the
+    unbiased variance, n/(n − 1) times larger.) Built in eval mode, as the
+    JAX modules default to ``train=False``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+        with torch.no_grad():
+            for running, batch in ((self.running_mean, mean), (self.running_var, var)):
+                running.mul_(self.momentum).add_(batch, alpha=1.0 - self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -261,6 +287,17 @@ def spatial_dropout(x: torch.Tensor, rate: float,
     return x if mask is None else x * mask.to(x.dtype)[:, :, None, None]
 
 
+def drop_connect(x: torch.Tensor, survival_prob: float,
+                 masks: Optional[ChannelDropout]) -> torch.Tensor:
+    """Stochastic depth on a residual branch: each sample's NCHW ``x`` kept
+    with probability ``survival_prob`` (one [n, 1] draw from ``masks``) and
+    scaled by 1/survival_prob; identity without a mask source."""
+    if masks is None:
+        return x
+    keep = masks.draw(x.shape[0], 1, survival_prob, x.device)
+    return x / survival_prob * keep.to(x.dtype)[:, :, None, None]
+
+
 class SqueezeExcite(nn.Module):
     def __init__(self, filters: int, se_filters: int, act: Callable):
         super().__init__()
@@ -270,7 +307,7 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
         """Scale NCHW ``x`` by the excitation of ``pooled`` [N, C], its
-        spatial mean (f32, from the fused front half)."""
+        spatial mean (f32 from the fused front half, x's type unfused)."""
         se = pooled.to(x.dtype)[:, :, None, None]
         se = self.expand(self.act(self.reduce(se)))
         return torch.sigmoid(se) * x
@@ -281,31 +318,35 @@ class MBConvBlock(nn.Module):
 
     def __init__(self, block_args: BlockArgs, in_channels: int,
                  act_type: str = "swish", use_se: bool = True,
-                 bn_epsilon: float = 1e-3, mc_dropoutrate: float = 0.0):
+                 bn_epsilon: float = 1e-3, mc_dropoutrate: float = 0.0,
+                 survival_prob: Optional[float] = None, bn_momentum: float = 0.99):
         super().__init__()
         a = block_args
         self.act_type = act_type
+        self.act = activation_fn(act_type)
         self.mc_dropoutrate = mc_dropoutrate
+        self.survival_prob = survival_prob
         filters = in_channels
         self.expand_conv = self.bn0 = None
         if a.expand_ratio != 1:
             filters = a.input_filters * a.expand_ratio
             self.expand_conv = Conv2d(in_channels, filters, 1, bias=False)
-            self.bn0 = BatchNorm(filters, bn_epsilon)
+            self.bn0 = BatchNorm(filters, bn_epsilon, bn_momentum)
         # the depthwise conv acts on the actual channel count (a fixed lite
         # stem can differ from the rounded block_args filters)
         self.depthwise_conv = Conv2d(filters, filters, a.kernel_size, a.strides[0],
                                      groups=filters, bias=False)
-        self.bn1 = BatchNorm(filters, bn_epsilon)
+        self.bn1 = BatchNorm(filters, bn_epsilon, bn_momentum)
         self.se = None
         if use_se and a.se_ratio and 0 < a.se_ratio <= 1:
             self.se = SqueezeExcite(filters, max(1, int(a.input_filters * a.se_ratio)),
                                     activation_fn(act_type))
         self.project_conv = Conv2d(filters, a.output_filters, 1, bias=False)
-        self.bn2 = BatchNorm(a.output_filters, bn_epsilon)
+        self.bn2 = BatchNorm(a.output_filters, bn_epsilon, bn_momentum)
         self.residual = (a.id_skip and all(s == 1 for s in a.strides)
                          and a.input_filters == a.output_filters)
         self.folded: Optional[Dict[str, torch.Tensor]] = None
+        self.eval()
 
     def fold(self) -> Dict[str, torch.Tensor]:
         """The fused call's f32 operands, inference BatchNorm folded in:
@@ -334,8 +375,38 @@ class MBConvBlock(nn.Module):
         device; a later ``load_state_dict`` or ``to`` calls for a new fold."""
         self.folded = self.fold()
 
+    def train(self, mode: bool = True) -> "MBConvBlock":
+        """Entering or leaving train mode drops the fold: an optimizer moves
+        the weights it was made from, and eval mode then folds afresh each
+        call until ``prepare_inference`` folds again. A block is built in
+        eval mode."""
+        if mode or self.training:
+            self.folded = None
+        return super().train(mode)
+
+    def forward_unfused(self, x: torch.Tensor,
+                        masks: Optional[ChannelDropout] = None) -> torch.Tensor:
+        """The JAX module's chain: expand → bn0 → act → dropout → depthwise
+        → bn1 → act → dropout → SE → project → bn2 (→ drop_connect →
+        residual), BatchNorm as the mode says. Train mode runs it."""
+        inputs = x
+        rate = self.mc_dropoutrate
+        if self.expand_conv is not None:
+            x = spatial_dropout(self.act(self.bn0(self.expand_conv(x))), rate, masks)
+        x = spatial_dropout(self.act(self.bn1(self.depthwise_conv(x))), rate, masks)
+        if self.se is not None:
+            x = self.se(x, x.mean((2, 3)))
+        x = self.bn2(self.project_conv(x))
+        if self.residual:
+            if self.training and self.survival_prob:
+                x = drop_connect(x, self.survival_prob, masks)
+            x = x + inputs
+        return x
+
     def forward(self, x: torch.Tensor,
                 masks: Optional[ChannelDropout] = None) -> torch.Tensor:
+        if self.training:
+            return self.forward_unfused(x, masks)
         from udal_tpu_torch.ops.fused_dw import fused_depthwise  # (import cycle, see fold)
         from udal_tpu_torch.ops.fused_mbconv import fused_expand_dw
 
@@ -383,7 +454,7 @@ class EfficientNet(nn.Module):
         super().__init__()
         self.act = activation_fn(act_type)
         self.stem_conv = Conv2d(3, spec.stem_filters, 3, 2, bias=False)
-        self.stem_bn = BatchNorm(spec.stem_filters, spec.bn_epsilon)
+        self.stem_bn = BatchNorm(spec.stem_filters, spec.bn_epsilon, spec.bn_momentum)
         self.block_args = expand_blocks(spec)
         n = len(self.block_args)
         # a block ends a reduction when it is the last one or the next
@@ -393,16 +464,27 @@ class EfficientNet(nn.Module):
         self.reduction_channels: List[int] = []
         channels = spec.stem_filters
         for idx, a in enumerate(self.block_args):
+            # stochastic depth: the drop rate grows linearly with the block index
+            survival = (1.0 - (1.0 - spec.survival_prob) * idx / n
+                        if spec.survival_prob else None)
             self.add_module(f"blocks_{idx}", MBConvBlock(
-                a, channels, act_type, spec.use_se, spec.bn_epsilon, mc_dropoutrate))
+                a, channels, act_type, spec.use_se, spec.bn_epsilon, mc_dropoutrate,
+                survival, spec.bn_momentum))
             channels = a.output_filters
             if self.is_reduction[idx]:
                 self.reduction_channels.append(channels)
+        self.eval()
 
     def prepare_inference(self) -> None:
         """Fold every block's BatchNorms into its fused call's operands."""
         for idx in range(len(self.block_args)):
             getattr(self, f"blocks_{idx}").prepare_inference()
+
+    def drop_folds(self) -> None:
+        """Forget every block's fold: weights were loaded into the model
+        in whatever mode it is."""
+        for idx in range(len(self.block_args)):
+            getattr(self, f"blocks_{idx}").folded = None
 
     def forward(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                 start_block: int = 0) -> List[Optional[torch.Tensor]]:

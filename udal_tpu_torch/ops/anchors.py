@@ -1,9 +1,9 @@
 """Multi-scale anchor generation and box decoding.
 
 Port of ``udal_tpu/ops/anchors.py``: anchors are generated once on the host
-with numpy (the same code, so the same float32 values), decoding is
-elementwise torch on the flat ``[N, 4]`` anchor tensor and broadcasts over
-any leading (sample, batch) axes.
+with numpy (the same code, so the same float32 values), decoding and the
+training targets' encoding are elementwise torch on the flat ``[N, 4]``
+anchor tensor and broadcast over any leading (sample, batch) axes.
 """
 
 from __future__ import annotations
@@ -51,6 +51,19 @@ class Anchors:
         if device not in self._on_device:
             self._on_device[device] = torch.from_numpy(self.boxes_np).to(device)
         return self._on_device[device]
+
+    def get_anchors_per_location(self) -> int:
+        return self.num_scales * len(self.aspect_ratios)
+
+    def level_slices(self) -> Dict[int, Tuple[int, int]]:
+        """Flat [start, end) index range of each pyramid level's anchors."""
+        out, count = {}, 0
+        a = self.get_anchors_per_location()
+        for level in range(self.min_level, self.max_level + 1):
+            fs = self.feat_sizes[level]
+            out[level] = (count, count + fs["height"] * fs["width"] * a)
+            count = out[level][1]
+        return out
 
     def _level_configs(self, level: int):
         """(stride_yx, octave, aspect, scale) per anchor shape on a level."""
@@ -128,3 +141,21 @@ def decode_box_outputs(pred_boxes: torch.Tensor,
     xcenter = tx * wa + xcenter_a
     return torch.stack([ycenter - h / 2.0, xcenter - w / 2.0,
                         ycenter + h / 2.0, xcenter + w / 2.0], dim=-1)
+
+
+def encode_box_targets(gt_boxes: torch.Tensor, anchor_boxes: torch.Tensor,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """Inverse of ``decode_box_outputs``: FasterRCNN box coding of
+    corner-encoded boxes against their anchors, with the coder's 1e-8
+    guards on every height and width."""
+    ycenter_a, xcenter_a, ha, wa = anchors_to_centersize(anchor_boxes)
+    ycenter_g = (gt_boxes[..., 0] + gt_boxes[..., 2]) / 2
+    xcenter_g = (gt_boxes[..., 1] + gt_boxes[..., 3]) / 2
+    hg = gt_boxes[..., 2] - gt_boxes[..., 0]
+    wg = gt_boxes[..., 3] - gt_boxes[..., 1]
+    ha, wa, hg, wg = ha + eps, wa + eps, hg + eps, wg + eps
+    ty = (ycenter_g - ycenter_a) / ha
+    tx = (xcenter_g - xcenter_a) / wa
+    th = torch.log(hg / ha)
+    tw = torch.log(wg / wa)
+    return torch.stack([ty, tx, th, tw], dim=-1)
