@@ -74,8 +74,11 @@ exit code:
    exact, B8 within 1 ulp), then every timed case, asserting each kernel's
    launch count. The packed rows of the summary give the medians of the
    tool's CUDA-graph replays (device time: B6 and B7 run for less time than
-   their wrappers take on the host). Then B6, B7 and ``x + 1`` in 5 rounds
-   of 20 graph replays each, in turns: the median and spread of each.
+   their wrappers take on the host). Then B6, B7 and ``x + 1`` streamed
+   from HBM (each a graph of 8 calls on 8 copies of the input, every output
+   kept: 252 MB, past the 50 MB L2) in 5 rounds of 20 replays each, in
+   turns: the median and spread of each a call, and each against the bound
+   of the bytes they move at HBM's rate.
 7. the repo's own inference configurations at full width (bf16, batch 8,
    random weights from a seed, 4 calls a path, medians of calls 2-4, the
    launch counts set to 0 before each path and read after it):
@@ -105,13 +108,32 @@ exit code:
    third epoch; the trained weights then serve (MC T=10, bf16) with 1/15/1
    launches a call and finite detections. With ``--profile``, a
    torch.profiler split of two train steps and the card's idle share.
+9. calibrate, threshold, auto-label and validate at KITTI's inference
+   configuration (``configs/inference/inference_k.yaml``, whose hparams
+   are phase 7's KITTI file: head-only MC T=10, 7 classes, softmax
+   logits), 1024x512, bf16, batch 8, random weights from a seed, on
+   synthetic uint8 frames with groundtruth: ``Calibrate.run`` over 4
+   batches (the calibrators read back from their ``.npz`` files),
+   ``UncertOptimal`` on the gathered entropy and relative aleatoric σ
+   (its thresholds read back), ``InferImages`` with the calibrators,
+   weights and thresholds, auto-labeling, over 2 batches
+   (``prediction_data.txt`` read back, the calibrated σ finite, every
+   image labeled or to examine), ``Validator`` over 2 batches (its four
+   artifacts, ``validate_results.txt`` read back) and
+   ``consistency_check`` (flip, the card's 9x9 blur, noise) on one batch;
+   1/15/1 launches a serve in every app; each app's time a batch, split
+   into the serve (timed to a synchronisation) and the host. The
+   temperature fits on the gathered arrays agree card vs CPU within 1e-5
+   relative. It writes and removes ``build/chip_smoke_apps/``.
    Then the script's total time.
 
 The line before the last is a JSON summary of the kernels: each with its
 launches on the main path (phase 4, or phase 6's timed cases for the
 probes), largest error, time (soft_nms and fused_dw: device time of 10
 calls captured in a CUDA graph; fused_expand_dw: CUDA events around eager
-calls; the packed rows: the tool's graph medians), plain time (CUDA events
+calls; the packed rows: the tool's graph medians, rows 6-7 and their
+plain version the 5-round medians of phase 6, streamed from HBM), plain
+time (CUDA events
 around eager calls), its bound (the largest of the
 bytes it must move at 3.35 TB/s, its bf16 operations on tensor cores at
 989 TFLOP/s and its f32 operations at 67 TFLOP/s, the H100 SXM data
@@ -133,7 +155,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from udal_tpu_torch.apps import calibration
+from udal_tpu_torch.apps.calibrate_model import Calibrate
+from udal_tpu_torch.apps.infer import (InferImages, consistency_check, read_prediction_data,
+                                       split_serve_outputs)
 from udal_tpu_torch.apps.serving import ServingDriver
+from udal_tpu_torch.apps.thresholding import UncertOptimal, read_optimal_thresholds
+from udal_tpu_torch.apps.validate import Validator, read_validate_results
 from udal_tpu_torch.config import get_detection_config, parse_image_size
 from udal_tpu_torch.convert import flax_to_torch, torch_to_flax
 from udal_tpu_torch.models.efficientdet import EfficientDetModel, EfficientDetNet, init_flax_style
@@ -143,6 +171,7 @@ from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2
                                                 block_input_sizes)
 from udal_tpu_torch.data.synthetic import synthetic_batch
 from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms, packed
+from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8
 from udal_tpu_torch.tools import perf_packed
 from udal_tpu_torch.train import loop, train_lib
 from udal_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, swap_in_ema
@@ -171,6 +200,11 @@ KITTI_RUNNER = ("configs/train/train_runner.ini", dict(batch_size=8))
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 5   # cut from the runner's 500 epochs of 748 steps
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 KITTI_NATIVE = (375, 1242)     # a KITTI frame's native size
+# phase 9: calibrate -> thresholds -> auto-label -> validate at KITTI's
+# inference configuration (configs/inference/inference_k.yaml takes its
+# hparams from KITTI_HEAD's file), batches of BATCH synthetic frames
+APPS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_apps"
+CALIB_BATCHES, INFER_BATCHES, VAL_BATCHES = 4, 2, 2
 ENSEMBLE_MEMBERS = 5           # BASELINE config #3
 BATCH, N_CAND, K = 8, 5000, 100
 SERVE_CALLS = 4
@@ -1045,6 +1079,198 @@ def phase8(dev, smi, profiled=False):
     torch.cuda.empty_cache()
 
 
+class ServeClock:
+    """Counts the driver's serves and times each to a synchronisation (a
+    wrapper around its three packed entries, which every app reaches)."""
+
+    def __init__(self, driver):
+        self.calls, self.seconds = 0, 0.0
+        for name in ("serve", "serve_preprocessed", "serve_preprocessed_uint8"):
+            setattr(driver, name, self._timed(getattr(driver, name)))
+
+    def _timed(self, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return timed
+
+
+def app_run(what, clock, batches, fn):
+    """fn() with the launch counts set to 0 before and read after: asserts
+    1/15/1 launches a serve; returns (its result, a line of the app's time
+    a batch: all, in the serve, on the host)."""
+    reset_counts()
+    calls0, serve0 = clock.calls, clock.seconds
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    calls, serve = clock.calls - calls0, clock.seconds - serve0
+    launches = counts()
+    if calls == 0 or launches != (calls, 15 * calls, calls) or \
+            fused_dw.path_launches["fast"] != calls:
+        raise AssertionError(f"{what}: (fused_dw, fused_expand_dw, soft_nms) launches "
+                             f"{launches} in {calls} serves, want 1/15/1 a serve (fast path "
+                             f"{fused_dw.path_launches['fast']})")
+    return out, (f"{what}: {batches} batches, {calls} serves, launches {launches}; "
+                 f"{wall / batches * 1e3:.1f} ms a batch = serve "
+                 f"{serve / batches * 1e3:.1f} + host {(wall - serve) / batches * 1e3:.1f}")
+
+
+def phase9(dev, smi):
+    """Calibrate, threshold, auto-label and validate at KITTI's inference
+    configuration, full width: ``Calibrate.run`` over CALIB_BATCHES
+    batches, ``UncertOptimal`` on the gathered entropy and relative
+    aleatoric σ, ``InferImages`` with the calibrators and thresholds over
+    INFER_BATCHES, ``Validator`` over VAL_BATCHES, ``consistency_check`` on
+    one batch; every artifact read back, the launches asserted a serve, the
+    temperature fits held card vs CPU."""
+    path, overrides = KITTI_HEAD
+    server = ServingDriver.create("efficientdet-d0", overrides=overrides, batch_size=BATCH,
+                                  seed=0, device=dev)
+    cfg = server.config
+    h, w = parse_image_size(cfg.image_size)
+    rng = np.random.RandomState(20)
+
+    def batches(n, tag):
+        out = []
+        for k in range(n):
+            images, labels = synthetic_batch(rng, BATCH, h, w, cfg.num_classes)
+            labels["image_names"] = [f"{tag}_{k}_{i}.png" for i in range(BATCH)]
+            out.append((images, labels))
+        return out
+
+    calib_data, infer_data, val_data = (batches(CALIB_BATCHES, "calib"),
+                                        batches(INFER_BATCHES, "infer"),
+                                        batches(VAL_BATCHES, "val"))
+    shutil.rmtree(APPS_DIR, ignore_errors=True)
+    clock = ServeClock(server)
+    lines = []
+    app = Calibrate(server, str(APPS_DIR / "calib"))
+    data, line = app_run("Calibrate.gather_detections", clock, CALIB_BATCHES,
+                         lambda: app.gather_detections(calib_data))
+    lines.append(line)
+    (reg, cls), line = app_run("Calibrate.run", clock, CALIB_BATCHES,
+                               lambda: app.run(calib_data))
+    lines.append(line)
+    loaded = calibration.load_calibrators(str(APPS_DIR / "calib"))
+    if sorted(loaded[0]) != sorted(calibration.REGRESSION_CALIBRATORS) or len(loaded[1]) != 8:
+        raise AssertionError(f"calibrators read back: {sorted(loaded[0])}, {sorted(loaded[1])}")
+
+    # the temperature fits, card vs CPU, on the gathered arrays
+    res = np.abs(data["pred_boxes"] - data["gt_boxes"])
+    onehot = np.eye(cfg.num_classes)[data["gt_classes"] - 1]
+    fits, fit_ms = {}, {}
+    for name, fn in (("regression", lambda d: calibration.fit_temperature_regression(
+                         res, data["sigma_al"], device=d)),
+                     ("classification", lambda d: calibration.fit_temperature_classification(
+                         onehot, data["logits"], False, device=d)),
+                     ("per class", lambda d: calibration.fit_temperature_classification(
+                         onehot, data["logits"], True, device=d))):
+        t0 = time.perf_counter()
+        card = np.asarray(fn(dev), np.float64)
+        t1 = time.perf_counter()
+        cpu = np.asarray(fn("cpu"), np.float64)
+        fits[name] = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        fit_ms[name] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        if fits[name] > 1e-5:
+            raise AssertionError(f"temperature fit ({name}) card {card} vs CPU {cpu}")
+
+    # thresholds on the entropy and the relative aleatoric σ of the gathered pairs
+    probs = calibration.stable_softmax(data["logits"])
+    entropy = -np.sum(probs * np.log(np.clip(probs, 1e-12, 1)), -1)
+    rel_al = np.mean(calibration.relativize(data["pred_boxes"], data["sigma_al"]), -1)
+    tps = (data["pred_classes"] == data["gt_classes"]).astype(float)
+    t0 = time.perf_counter()
+    uo = UncertOptimal(data["gt_classes"], tps, data["ious"], [entropy, rel_al],
+                       source_path=str(APPS_DIR / "thresholds"))
+    params = uo.optimize()
+    thresholds = read_optimal_thresholds(str(APPS_DIR / "thresholds"))
+    lines.append(f"UncertOptimal on {len(tps)} pairs (ENT, ALBOX): weights {params.tolist()}, "
+                 f"thresholds {thresholds.tolist()}, {time.perf_counter() - t0:.2f} s")
+
+    # On random weights the ROC never reaches the budget and the thresholds
+    # are inf, which labels every image (ROADMAP C10). So the gate is driven
+    # with a finite threshold: midway in the widest gap between the images'
+    # largest combined uncertainties, read from a probe run on the same masks.
+    masks = server.masks.generator.get_state()
+    probe = InferImages(server, str(APPS_DIR / "probe"), opt_params=params).run(infer_data)
+    server.masks.generator.set_state(masks)
+    by_image = {}
+    for r in probe:
+        u = params[0] * r["entropy"] + params[1] * np.mean(calibration.relativize(
+            np.asarray([r["bbox"]]), np.asarray([r["uncalib_albox"]])))
+        by_image[r["image_name"]] = max(by_image.get(r["image_name"], -np.inf), u)
+    top = np.sort(list(by_image.values()))
+    gap = int(np.argmax(np.diff(top) / np.abs(top[1:])))
+    gate = (top[gap] + top[gap + 1]) / 2
+    want_labeled = sorted(n for n, u in by_image.items() if u < gate)
+    gate_dir = APPS_DIR / "gate"
+    gate_dir.mkdir()
+    (gate_dir / "optimal_thrs_cd_0.95_iou_0.5_0.75.txt").write_text(
+        "[" + " ".join([repr(float(gate))] * 6) + "]")
+
+    infer = InferImages(server, str(APPS_DIR / "infer"), calib_dir=str(APPS_DIR / "calib"),
+                        auto_labeling=True, opt_params=params, opt_thrs_path=str(gate_dir))
+    rows, line = app_run("InferImages", clock, INFER_BATCHES, lambda: infer.run(infer_data))
+    lines.append(line)
+    parsed = read_prediction_data(str(APPS_DIR / "infer" / "prediction_data.txt"))
+    labeled = (APPS_DIR / "infer" / "labeled" / "images.txt").read_text().split()
+    examine = (APPS_DIR / "infer" / "examine" / "images.txt").read_text().split()
+    sigmas = [v for r in parsed for k, v in r.items() if k.endswith(("_albox", "_mcbox"))]
+    pseudo = len(list((APPS_DIR / "infer" / "labeled").glob("*.txt"))) - 1
+    if len(parsed) != len(rows) or not parsed or not np.all(np.isfinite(sigmas)) or \
+            len(by_image) != INFER_BATCHES * BATCH or not labeled or not examine or \
+            sorted(labeled) != want_labeled or pseudo != len(labeled) or \
+            len(labeled) + len(examine) != INFER_BATCHES * BATCH:
+        raise AssertionError(f"InferImages: {len(parsed)} rows read back of {len(rows)}, "
+                             f"{len(by_image)} images with detections, labeled {len(labeled)} "
+                             f"(want {len(want_labeled)} below the gate {gate}, {pseudo} "
+                             f"pseudo-label files), examine {len(examine)}, calibrated σ "
+                             f"finite {np.all(np.isfinite(sigmas))}")
+    lines.append(f"InferImages: {len(parsed)} rows, {len(sigmas)} calibrated σ vectors, all "
+                 f"finite; gate {float(gate)!r}, midway in the widest gap (relative "
+                 f"{np.diff(top)[gap] / abs(top[gap + 1]):.2e}) between the images' largest "
+                 f"combined uncertainties, {float(top[0])!r}..{float(top[-1])!r}: labeled {len(labeled)} "
+                 f"({pseudo} pseudo-label files), examine {len(examine)}, as the probe run "
+                 f"predicts")
+
+    val = Validator(server, str(APPS_DIR / "val"), calib_dir=str(APPS_DIR / "calib"))
+    vrows, line = app_run("Validator", clock, VAL_BATCHES, lambda: val.run(val_data))
+    lines.append(line)
+    vparsed = read_validate_results(str(APPS_DIR / "val" / "validate_results.txt"))
+    artifacts = [p.name for p in sorted((APPS_DIR / "val").iterdir())]
+    if len(vparsed) != len(vrows) or not vparsed or len(artifacts) != 4:
+        raise AssertionError(f"Validator: {len(vparsed)} rows read back of {len(vrows)}, "
+                             f"artifacts {artifacts}")
+    lines.append(f"Validator: {len(vparsed)} rows, {artifacts}; "
+                 + (APPS_DIR / "val" / "model_performance.txt").read_text().replace("\n", " "))
+
+    images = infer_data[0][0]
+    blur = gaussian_blur_uint8(images, 9, dev)
+    if not torch.equal(blur.cpu(), gaussian_blur_uint8(images, 9, "cpu")):
+        raise AssertionError("the 9x9 blur on the card differs from the CPU's")
+    lines.append(f"gaussian_blur_uint8 9x9 of {tuple(blur.shape)}: card equal to the CPU")
+    base = split_serve_outputs(cfg, server.serve(images))
+    (miou, agree), line = app_run("consistency_check (flip, blur, noise)", clock, 1,
+                                  lambda: consistency_check(server, images, base["boxes"],
+                                                            base["classes"]))
+    lines.append(line + f"; mean IoU {float(miou.mean()):.4f}, class agreement "
+                        f"{float(agree.mean()):.4f}")
+    for line in lines:
+        phase(9, line)
+    phase(9, f"KITTI ({path}) d0 {h}x{w}, head-only MC T={cfg.mc_dropoutsamp}, bf16, batch "
+             f"{BATCH}: temperature fits card vs CPU, largest relative difference "
+             f"{fits}, ms a fit (card, CPU) "
+             f"{ {k: (round(a, 1), round(b, 1)) for k, (a, b) in fit_ms.items()} }; {smi}")
+    del server
+    shutil.rmtree(APPS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -1152,10 +1378,16 @@ def main():
              f"{perf_packed.RUNS} CUDA-graph replays); {smi}")
     rounds = perf_packed.p1_rounds(dev)
     p1 = {case: statistics.median(ms) for case, ms in rounds.items()}
-    phase(6, "p1 in " + str(perf_packed.P1_ROUNDS) + " rounds of " + str(perf_packed.RUNS)
-          + " graph replays, median of the round medians [min, max]: " + ", ".join(
+    p1_bytes = 4096 * perf_packed.N // 8 * perf_packed.G * perf_packed.CI * 2
+    p1_bound = bound(2 * p1_bytes, f32_flops=p1_bytes / 2)[0]
+    phase(6, f"p1 streamed from HBM (graphs of {perf_packed.P1_COPIES} calls on as many "
+          f"copies of x, outputs kept) in {perf_packed.P1_ROUNDS} rounds of {perf_packed.RUNS} "
+          "replays, ms a call, median of the round medians [min, max]: " + ", ".join(
               f"{case} {p1[case]:.4f} [{min(ms):.4f}, {max(ms):.4f}]"
-              for case, ms in rounds.items()) + f"; {smi}")
+              for case, ms in rounds.items()) + f"; bound {p1_bound:.4f} ms: B6 at "
+          f"{p1_bound / p1['p1_reshape_roundtrip']:.0%} and B7 at "
+          f"{p1_bound / p1['p1_copy_baseline']:.0%} of it, x + 1 at "
+          f"{p1_bound / p1['p1_plain']:.0%}; {smi}")
 
     # -- 7. the repo's inference configurations at full width ---------------
     t0 = time.perf_counter()
@@ -1166,6 +1398,11 @@ def main():
     t0 = time.perf_counter()
     phase8(dev, smi, "--profile" in sys.argv[1:])
     phase(8, f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. calibrate, threshold, auto-label and validate at full width -------
+    t0 = time.perf_counter()
+    phase9(dev, smi)
+    phase(9, f"done in {time.perf_counter() - t0:.1f} s")
 
     kernel_ms, plain_ms = times["gaussian"]
     # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per
@@ -1180,15 +1417,16 @@ def main():
     pw_m, pw_k, pw_n = perf_packed.N * perf_packed.H * perf_packed.W // perf_packed.G, \
         perf_packed.G * perf_packed.CI, perf_packed.G * perf_packed.CE
     wide = perf_packed.N * perf_packed.H * perf_packed.W * perf_packed.CE * 2
-    p1_bytes = 4096 * perf_packed.N // 8 * perf_packed.G * perf_packed.CI * 2
     bounds.update({"packed_pointwise": bound((pw_m * pw_k + pw_k * pw_n + pw_m * pw_n) * 2,
                                              2.0 * pw_m * pw_k * pw_n),
                    "packed_wshift": bound(2 * wide),
                    "add_one_natural": bound(2 * p1_bytes, f32_flops=p1_bytes / 2),
                    "add_one_packed": bound(2 * p1_bytes, f32_flops=p1_bytes / 2),
                    "packed_dw_w3": bound(2 * wide + 3 * pw_n * 2, f32_flops=5.0 * wide / 2)})
+    # rows 6-7 (and x + 1, their plain version and library call): the 5-round medians
+    bench.update(p1)
     library = {"packed_pointwise": bench["matmul_pw_128x256x24to144"],
-               "add_one_natural": bench["p1_plain"], "add_one_packed": bench["p1_plain"]}
+               "add_one_natural": p1["p1_plain"], "add_one_packed": p1["p1_plain"]}
     rows = [{"name": "soft_nms", "route": "cuda", "source": "udal_tpu_torch/csrc/soft_nms.cu",
              "replaces": "udal_tpu/ops/pallas_nms.py:36", "launches": launches[2],
              "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}]

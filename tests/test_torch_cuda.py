@@ -512,6 +512,22 @@ def test_add_one_kernels_match_plain(cuda, rows, cols, cin, tile, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+@pytest.mark.parametrize("rows", [7, 600001])
+def test_add_one_body_takes_odd_totals_and_unaligned_offsets(cuda, rows, offset):
+    """Bit-equal to the plain version over 105 and 9,000,015 values (odd:
+    a scalar tail after the vectors; the larger spans more than one wave of
+    the grid-stride loop), from views ``offset`` values past an aligned
+    address (1 and 3: every value on the scalar path; 8: vectors again)."""
+    base = bf16_normal(12, (rows * 15 + offset,), cuda, 4.0)
+    x = base[offset:].view(rows, 15)
+    assert (x.data_ptr() % 16 == 0) == (offset % 8 == 0)
+    for name in ("add_one_natural", "add_one_packed"):
+        got = launched(name, lambda: getattr(packed, name)(x, 5, 1))
+        assert torch.equal(got, packed.add_one_plain(x, 5, 1))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,cexp", [((2, 8, 3, 15), 5), ((2, 8, 5, 128), 16),
                                         ((8, 128, 32, 1152), 144)])
 def test_packed_dw_w3_kernel_matches_plain(cuda, shape, cexp):
@@ -848,3 +864,34 @@ def test_trained_model_serves_through_the_kernels(no_tf32):
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (1, 15, 1)
     assert all(bool(torch.isfinite(t.float()).all()) for t in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fit", ["mae", "mse", "rmse", "scalar", "per_class"])
+def test_temperature_fits_on_the_card_match_the_cpu(cuda, fit):
+    """The fits keep t on the device and read it once: the card's T within
+    1e-5 relative of the CPU's on the same arrays. The residuals are
+    tenths of a unit: with a few units the loop's fixed step of 0.1 on the
+    squared error overshoots and oscillates (the JAX loop's arithmetic,
+    ROADMAP C10), so a last-bit difference in a sum changes T."""
+    from udal_tpu_torch.apps import calibration
+    rng = np.random.RandomState(3)
+    if fit in ("mae", "mse", "rmse"):
+        sigma = rng.uniform(0.05, 0.5, (300, 4))
+        res = np.abs(rng.normal(0, 1.0, (300, 4)) * sigma * 1.7)
+        fn = lambda d: calibration.fit_temperature_regression(res, sigma, loss=fit, device=d)
+    else:
+        logits = rng.normal(0, 3, (300, 7))
+        onehot = np.eye(7)[rng.randint(0, 7, 300)]
+        fn = lambda d: calibration.fit_temperature_classification(
+            onehot, logits, fit == "per_class", device=d)
+    np.testing.assert_allclose(fn(cuda), fn("cpu"), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gaussian_blur_on_the_card_equals_the_cpu(cuda):
+    """Integer sums after cv2's fixed-point kernel: bit for bit."""
+    from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8
+    images = np.random.RandomState(5).randint(0, 256, (2, 67, 131, 3)).astype(np.uint8)
+    assert torch.equal(gaussian_blur_uint8(images, 9, cuda).cpu(),
+                       gaussian_blur_uint8(images, 9, "cpu"))

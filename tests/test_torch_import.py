@@ -1,4 +1,4 @@
-"""The port's serving path loads on a machine with PyTorch and numpy only."""
+"""The port loads on a machine with PyTorch, numpy and scipy only."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import pytest
 pytest.importorskip("torch")
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "udal_tpu_torch"
-FORBIDDEN = ("jax", "flax", "yaml", "udal_tpu")
+FORBIDDEN = ("jax", "flax", "yaml", "udal_tpu", "sklearn", "cv2", "PIL", "matplotlib")
 
 
 def _forbidden(module: str) -> bool:
@@ -55,6 +55,28 @@ def test_training_path_imports_no_jax_flax_yaml_or_jax_package():
                          cwd=PORT.parent, check=True).stdout.split()
     for module in ("torch", "udal_tpu_torch.train.train_lib", "udal_tpu_torch.data.labels",
                    "udal_tpu_torch.utils.checkpoint", "udal_tpu_torch.ops.target_assign"):
+        assert module in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_apps_import_nothing_the_card_machine_lacks():
+    """Calibration, thresholding, the auto-labeling and validation apps,
+    the offline analysis, the label maps and the calibrators' converter
+    load with none of JAX, flax, yaml, the JAX package, sklearn, cv2, PIL
+    or matplotlib (the machine with the card has none of them)."""
+    code = ("import sys, udal_tpu_torch.apps.calibration as c, udal_tpu_torch.apps.thresholding, "
+            "udal_tpu_torch.apps.infer as i, udal_tpu_torch.apps.validate as v, "
+            "udal_tpu_torch.apps.calibrate_model as m, udal_tpu_torch.apps.uncertainty_analysis, "
+            "udal_tpu_torch.data.label_maps, udal_tpu_torch.ops.image_ops; "
+            "from udal_tpu_torch.convert import calibrators_from_jax; "
+            "[c.IsotonicRegression, c.save_calibrators, c.load_calibrators, i.InferImages.run, "
+            "i.consistency_check, v.Validator.run, m.Calibrate.run]; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    for module in ("torch", "scipy.stats", "udal_tpu_torch.apps.calibration",
+                   "udal_tpu_torch.apps.thresholding", "udal_tpu_torch.apps.uncertainty_analysis",
+                   "udal_tpu_torch.data.label_maps"):
         assert module in out
     assert [m for m in out if _forbidden(m)] == []
 

@@ -1,1 +1,2 @@
-"""Application layer: the serving driver."""
+"""Application layer: the serving driver, calibration, thresholding, auto-labeling and
+validation."""

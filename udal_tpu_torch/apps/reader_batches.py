@@ -57,6 +57,12 @@ def groundtruth_from_labels(labels: Dict) -> np.ndarray:
                            gc[..., None]], axis=-1)
 
 
+def normalize_image(image, mean_rgb, stddev_rgb) -> np.ndarray:
+    """uint8 (or float) pixels to normalised f32."""
+    x = np.asarray(image).astype(np.float32)
+    return (x - np.asarray(mean_rgb, np.float32)) / np.asarray(stddev_rgb, np.float32)
+
+
 def denormalize_image(images, mean_rgb, stddev_rgb) -> np.ndarray:
     """Normalised images back to clipped uint8 pixels."""
     x = np.asarray(images, np.float32) * np.asarray(stddev_rgb, np.float32) \

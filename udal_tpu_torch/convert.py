@@ -30,11 +30,18 @@ moments, the EMA and the step; numpy, or any array ``np.asarray`` takes)
 into the port's ``TrainState``, and ``train_state_to_flax`` gives them
 back as nested dicts. Optimizer buffers and the EMA are laid out as the
 parameters they follow (``params_to_flax``).
+
+``calibrators_from_jax`` turns the JAX package's pickled calibrators
+(sklearn isotonic fits, temperatures) into the port's ``.npz`` files. It
+unpickles sklearn objects, so it runs where sklearn is installed; the
+port then loads the result on a machine without it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import os
+import pickle
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -235,3 +242,43 @@ def load_flax(model: nn.Module, params: Mapping, batch_stats: Mapping) -> nn.Mod
                              f"{tuple(expected[k].shape)}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _calibrator_from_jax(obj) -> Any:
+    """The port's form of one unpickled calibrator: a fitted sklearn
+    ``IsotonicRegression`` (its thresholds, input range and y bounds), a
+    list of them, or a temperature (float, array, list of floats) as it is."""
+    from udal_tpu_torch.apps.calibration import IsotonicRegression
+
+    if isinstance(obj, (list, tuple)):
+        return [_calibrator_from_jax(o) for o in obj]
+    if hasattr(obj, "X_thresholds_"):
+        if getattr(obj, "out_of_bounds", "clip") != "clip" or not getattr(obj, "increasing_",
+                                                                          True):
+            raise ValueError("the port's isotonic fit predicts increasing with clipping")
+        iso = IsotonicRegression(obj.y_min, obj.y_max)
+        iso.X_thresholds_ = np.asarray(obj.X_thresholds_)
+        iso.y_thresholds_ = np.asarray(obj.y_thresholds_)
+        iso.X_min_, iso.X_max_ = obj.X_min_, obj.X_max_
+        return iso
+    return obj
+
+
+def calibrators_from_jax(src_dir: str, dst_dir: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Read the calibrators ``udal_tpu.apps.calibration.save_calibrators``
+    pickled under ``src_dir/{regression,classification}/<sub>_<name>``,
+    write them in the port's format under ``dst_dir`` and return them as
+    (regression, classification). Unpickle only files the JAX package
+    wrote: unpickling runs code."""
+    from udal_tpu_torch.apps.calibration import save_calibrators
+
+    out = ({}, {})
+    for i, sub in enumerate(("regression", "classification")):
+        d = os.path.join(src_dir, sub)
+        if not os.path.isdir(d):
+            continue
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as f:
+                out[i][name.replace(f"{sub}_", "", 1)] = _calibrator_from_jax(pickle.load(f))
+    save_calibrators(dst_dir, *out)
+    return out

@@ -4,8 +4,8 @@
 // Replaces four TPU kernels of tools/perf_packed.py and computes what
 // udal_tpu_torch/ops/packed.py's plain versions compute:
 //   :147 packed_wshift_kernel (call :180)   -> wshift_kernel
-//   :236 kernel of case_p1.run (call :241)  -> add_one_kernel<natural view>
-//   :264 kernel of case_p1.fn_copy (:266)   -> add_one_kernel<packed view>
+//   :236 kernel of case_p1.run (call :241)  -> add_one_kernel
+//   :264 kernel of case_p1.fn_copy (:266)   -> add_one_kernel
 //   :296 kernel of case_p2 (call :313)      -> dw_w3_kernel
 //
 // The packed tensor [N, H, W/g, g*C] is, in row-major memory, the NHWC
@@ -15,9 +15,7 @@
 // tap reads sit C values either side; the TPU kernels' lane rolls and
 // slice-concats are not carried over. The relayout [Mp, g*C] -> [g*Mp, C]
 // that case_p1.run asked of Mosaic (refused there, :378-380) is the
-// identity here, so the two +1 kernels share one body and differ only in
-// the view their threads index: the natural [rows, C] one through shared
-// memory, the packed one straight from device memory.
+// identity here, so the two +1 kernels are one body over the same bytes.
 //
 // What bounds them: bytes. wshift and dw_w3 move 1.51 GB each at the
 // probe's shape (two 755 MB tensors), 0.45 ms at 3.35 TB/s. A block takes
@@ -26,11 +24,17 @@
 // thread keeps several loads in flight. dw_w3 multiplies and adds with
 // __fmul_rn / __fadd_rn in the plain version's order, so no multiply-add is
 // contracted and its result is the plain version's bit for bit. The +1 pass
-// moves 15.7 MB each way, which fits the 50 MB L2: its time is launch- and
-// L2-bound, not a measure of device memory.
+// moves 15.7 MB each way in one grid of at most one wave of resident blocks
+// (kAddBlocksPerSm on each SM), each thread first issuing kAddUnroll 16-byte
+// loads through the read-only path (__ldg), then adding and storing them, in
+// a grid-stride loop; the values past the last whole vector, and every value
+// when a pointer is not 16-byte aligned, take a scalar loop. (A first design
+// with four loads a thread, the L1::no_allocate hint and 64-bit indices
+// spilled at 8 blocks an SM and was slower; PERF.md has the times.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -39,7 +43,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 8192;  // values a block of the +1 pass covers (16 KB)
+constexpr int kAddUnroll = 2;      // 16-byte loads a thread has in flight in the +1 pass
+constexpr int kAddBlocksPerSm = 8;  // 8 x 256 threads: an SM's 2,048, at <= 32 registers
 
 // bf16 -> f32 is exact: the bf16 bits are the high half of the f32 bits
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
@@ -91,55 +96,35 @@ __device__ __forceinline__ bf16 add_one(bf16 v) {
   return __float2bfloat16(__bfloat162float(v) + 1.f);
 }
 
-// n values from src to dst, 16 bytes a step when kVec (n a multiple of 8,
-// both 16-byte aligned)
-template <bool kVec>
-__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int n) {
-  if constexpr (kVec) {
-    for (int i = threadIdx.x; i < n / 8; i += kThreads) {
-      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-    }
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
-  }
-}
-
-// B6 (kNatural) and B7: y = x + 1 over `total` values, rounded to bf16; a
-// block covers kChunk of them. B6's threads index the natural view
-// [rows, cols = C] of the block's values in shared memory; B7's threads
-// index the packed row-major view [Mp, g*C] in device memory, as vectors.
-template <bool kNatural, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-add_one_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long total, int cols) {
-  const long long start = static_cast<long long>(blockIdx.x) * kChunk;
-  const int n = static_cast<int>(min(static_cast<long long>(kChunk), total - start));
-  if constexpr (kNatural) {
-    __shared__ __align__(16) uint16_t raw[kChunk];
-    bf16* s = reinterpret_cast<bf16*>(raw);
-    copy_chunk<kVec>(s, x + start, n);
-    __syncthreads();
-    const int c0 = static_cast<int>(start % cols);  // column of the chunk's first value
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int r = (c0 + i) / cols;  // natural row, from the chunk's first
-      const int c = c0 + i - r * cols;
-      s[r * cols + c - c0] = add_one(s[r * cols + c - c0]);
-    }
-    __syncthreads();
-    copy_chunk<kVec>(y + start, s, n);
-  } else if constexpr (kVec) {
-    const uint4* xv = reinterpret_cast<const uint4*>(x + start);
-    uint4* yv = reinterpret_cast<uint4*>(y + start);
-#pragma unroll 4
-    for (int i = threadIdx.x; i < n / 8; i += kThreads) {
-      float f[8];
-      unpack8(__ldg(xv + i), f);
+// B6 and B7: y = x + 1 over `total` values, f32 add, one rounding to bf16.
+// The first nvec * 8 values go as 16-byte vectors (both pointers aligned),
+// the rest one at a time. The vector loop indexes in 32 bits (the host
+// keeps nvec and the stride in range): 64-bit indices took the registers
+// of 8 resident blocks past 32 a thread and spilled.
+__global__ void __launch_bounds__(kThreads, kAddBlocksPerSm)
+add_one_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int nvec, long long total) {
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  for (int base = tid; base < nvec; base += stride * kAddUnroll) {
+    uint4 v[kAddUnroll];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] += 1.f;
-      yv[i] = pack8(f);
+    for (int u = 0; u < kAddUnroll; ++u) {
+      if (base + u * stride < nvec) v[u] = __ldg(xv + base + u * stride);
     }
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) y[start + i] = add_one(x[start + i]);
+#pragma unroll
+    for (int u = 0; u < kAddUnroll; ++u) {
+      if (base + u * stride < nvec) {
+        float f[8];
+        unpack8(v[u], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] += 1.f;
+        yv[base + u * stride] = pack8(f);
+      }
+    }
   }
+  for (long long i = 8LL * nvec + tid; i < total; i += stride) y[i] = add_one(x[i]);
 }
 
 // B8: y[w] = (x[w-1] t0[l] + x[w] t1[l]) + x[w+1] t2[l] along each row of
@@ -212,26 +197,24 @@ extern "C" int udal_packed_wshift(const void* x, void* y, int rows, int row_len,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: `total` values; cols = C, the width of the natural view (natural
-// != 0), unused by the packed view.
-extern "C" int udal_add_one(const void* x, void* y, long long total, int cols, int natural,
-                            int vec, void* stream) {
-  if (total <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (total + kChunk - 1) / kChunk;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xi = static_cast<const bf16*>(x);
-  bf16* yo = static_cast<bf16*>(y);
-  const unsigned grid = static_cast<unsigned>(blocks);
-  if (natural && vec) {
-    add_one_kernel<true, true><<<grid, kThreads, 0, s>>>(xi, yo, total, cols);
-  } else if (natural) {
-    add_one_kernel<true, false><<<grid, kThreads, 0, s>>>(xi, yo, total, cols);
-  } else if (vec) {
-    add_one_kernel<false, true><<<grid, kThreads, 0, s>>>(xi, yo, total, cols);
-  } else {
-    add_one_kernel<false, false><<<grid, kThreads, 0, s>>>(xi, yo, total, cols);
-  }
+// x, y: `total` values, contiguous. Vectors when both pointers are 16-byte
+// aligned; a grid of at most one wave of resident blocks.
+extern "C" int udal_add_one(const void* x, void* y, long long total, void* stream) {
+  // the vector loop's 32-bit index runs to nvec + stride * kAddUnroll
+  if (total <= 0 || total / 8 > INT_MAX / 2) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  const long long nvec = vec ? total / 8 : 0;
+  // blocks for the vectors at kAddUnroll a thread, or for the scalars at one
+  const long long work = nvec > 0 ? (nvec + kThreads * kAddUnroll - 1) / (kThreads * kAddUnroll)
+                                  : (total + kThreads - 1) / kThreads;
+  const long long wave = static_cast<long long>(sms) * kAddBlocksPerSm;
+  const unsigned grid = static_cast<unsigned>(work < wave ? work : wave);
+  add_one_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(y), static_cast<int>(nvec), total);
   return static_cast<int>(cudaGetLastError());
 }
 

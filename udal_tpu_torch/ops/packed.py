@@ -12,8 +12,8 @@ function            TPU kernel                    computes
 ==================  ============================  =========================================
 packed_pointwise    ``perf_packed.py:80`` (B4)    ``xp @ wbd``, f32 sums, rounded once
 packed_wshift       ``perf_packed.py:147`` (B5)   a ±1 pixel shift along W, zero fill
-add_one_natural     ``perf_packed.py:236`` (B6)   ``x + 1``, threads on the [rows, C] view
-add_one_packed      ``perf_packed.py:264`` (B7)   ``x + 1``, threads on the [Mp, g·C] view
+add_one_natural     ``perf_packed.py:236`` (B6)   ``x + 1`` through the [rows, C] view
+add_one_packed      ``perf_packed.py:264`` (B7)   ``x + 1`` in the [Mp, g·C] view
 packed_dw_w3        ``perf_packed.py:296`` (B8)   3-tap depthwise along W, per-lane taps
 ==================  ============================  =========================================
 
@@ -222,29 +222,28 @@ def add_one_plain(x: torch.Tensor, cin: int, tile: int = 512) -> torch.Tensor:
     return x + 1
 
 
-def _add_one_cuda(x: torch.Tensor, cols: int, natural: bool, name: str) -> torch.Tensor:
+def _add_one_cuda(x: torch.Tensor, name: str) -> torch.Tensor:
     _check_cuda(x)
     y = torch.empty_like(x)
     if y.numel():
         with torch.cuda.device(x.device):
-            err = _kernel("packed_lane", "udal_add_one", _P, _P, _L, _I, _I, _I, _P)(
-                x.data_ptr(), y.data_ptr(), x.numel(), cols, int(natural),
-                int(x.numel() % 8 == 0 and _aligned(x, y)), _stream(x))
+            err = _kernel("packed_lane", "udal_add_one", _P, _P, _L, _P)(
+                x.data_ptr(), y.data_ptr(), x.numel(), _stream(x))
         _launched(err, name)
     return y
 
 
 def add_one_natural_cuda(x: torch.Tensor, cin: int, tile: int = 512) -> torch.Tensor:
-    """Launch B6 (checked): threads index the natural [Mp·g, C] view of a
-    block's values in shared memory."""
+    """Launch B6 (checked): the natural [Mp·g, C] view is the same bytes, so
+    the kernel is B7's."""
     _check_add_one(x, cin, tile)
-    return _add_one_cuda(x, cin, True, "add_one_natural")
+    return _add_one_cuda(x, "add_one_natural")
 
 
 def add_one_packed_cuda(x: torch.Tensor, cin: int, tile: int = 512) -> torch.Tensor:
-    """Launch B7 (checked): threads index the packed [Mp, g·C] view."""
+    """Launch B7 (checked)."""
     _check_add_one(x, cin, tile)
-    return _add_one_cuda(x, x.shape[1], False, "add_one_packed")
+    return _add_one_cuda(x, "add_one_packed")
 
 
 def add_one_natural(x: torch.Tensor, cin: int, tile: int = 512) -> torch.Tensor:

@@ -46,6 +46,7 @@ G = 8  # spatial positions packed into a row
 H, W, CI, CE = 128, 256, 24, 144
 RUNS, WARMUP = 20, 3
 P1_ROUNDS = 5
+P1_COPIES = 8   # p1_rounds' inputs: 8 x 31.5 MB in and out, well past the 50 MB L2
 M_TILES = (512, 2048, 4096)
 
 
@@ -291,31 +292,36 @@ def case_p1(dev) -> list:
             timed(lambda: packed.add_one_plain(xb, CI), "p1_plain", "plain", 2 * nbytes(xb))]
 
 
-def p1_rounds(dev, rounds: int = P1_ROUNDS) -> dict:
-    """B6, B7 and the plain ``x + 1`` at p1's shape, each captured once in a
-    CUDA graph after WARMUP calls, then ``rounds`` rounds of RUNS replays
-    of each in turn: {case: [median ms of each round]}. Each kernel
-    launches WARMUP + 1 times."""
+def p1_rounds(dev, rounds: int = P1_ROUNDS, copies: int = P1_COPIES) -> dict:
+    """B6, B7 and the plain ``x + 1`` at p1's shape, streamed from HBM: each
+    captured, after WARMUP calls, in one CUDA graph of ``copies`` calls on
+    as many copies of x with every output kept, so the calls touch
+    ``copies`` x 31.5 MB, past the 50 MB L2, and each finds its input and
+    output cold. Then ``rounds`` rounds of RUNS replays of each graph in
+    turn: {case: [median ms a call of each round]}. Each kernel launches
+    WARMUP + ``copies`` times."""
     _, xb = p1_operands(dev)
-    fns = {"p1_reshape_roundtrip": lambda: packed.add_one_natural(xb, CI),
-           "p1_copy_baseline": lambda: packed.add_one_packed(xb, CI),
-           "p1_plain": lambda: packed.add_one_plain(xb, CI)}
-    graphs = {}
+    xs = [xb.clone() for _ in range(copies)]
+    fns = {"p1_reshape_roundtrip": lambda x: packed.add_one_natural(x, CI),
+           "p1_copy_baseline": lambda x: packed.add_one_packed(x, CI),
+           "p1_plain": lambda x: packed.add_one_plain(x, CI)}
+    graphs, outputs = {}, []
     for name, fn in fns.items():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(WARMUP):
-                fn()
+                fn(xb)
         torch.cuda.current_stream().wait_stream(side)
         graphs[name] = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graphs[name]):
-            fn()
+            outputs.append([fn(x) for x in xs])
     medians = {name: [] for name in fns}
     for _ in range(rounds):
         for name, graph in graphs.items():
-            medians[name].append(median_ms(graph.replay))
-    emit({"case": "p1_rounds", "runs": RUNS, "round_medians_ms": medians, "gpu": gpu_line()})
+            medians[name].append(median_ms(graph.replay) / copies)
+    emit({"case": "p1_rounds", "runs": RUNS, "copies": copies, "round_medians_ms": medians,
+          "gpu": gpu_line()})
     return medians
 
 
