@@ -125,6 +125,29 @@ exit code:
    into the serve (timed to a synchronisation) and the host. The
    temperature fits on the gathered arrays agree card vs CPU within 1e-5
    relative. It writes and removes ``build/chip_smoke_apps/``.
+10. training and evaluation fed from TFRecords, through the CLI, at
+   KITTI's training operating point: 48 frames of 375x1242 (smooth colour
+   fields, pixel noise, 1-10 flat boxes of KITTI's classes, from a seed)
+   encoded by the port's PNG encoder with ``label_2`` files,
+   ``kitti_to_tfrecord`` into 32 train and 16 val records;
+   ``cli.main(["train", ...])`` with ``--hparams`` a copy of
+   ``configs/train/allclasses_mcdropout_lossatt.yaml`` (map_freq and
+   save_freq 1) read by the port's YAML reader, batch 8, 2 epochs x 4
+   steps: ms a step (each timed to a synchronisation), the reader's
+   input-wait share, the COCO callback's ms an evaluation (split into the
+   serves, the driver build and the rest) and its AP in [0, 1], its
+   launches asserted 1/1/15 (soft-NMS, fused depthwise on its fast path,
+   fused expand) a validation batch; one epoch with ``--device_resize``;
+   ``cli eval --fine_grid`` (dropout off) from the checkpoint, its COCO
+   numbers equal to the callback's on the same weights and val file
+   within 1e-6 (at least one of them above 0), and ``inspect --mode
+   validate``, each 1/15/1 a batch, with img/s; the reader alone (decode +
+   resize + labels, the classic contract) at 1, 4 and 8 threads and 4
+   processes, and with ``fast_input`` at 1 and 8 threads, against the
+   21.4 img/s a 373.7 ms step needs; the committed 1280x720 JPEG fixtures
+   (``tests/data/torch_jpeg``) decoded to the sha256 of cv2's decode, with
+   img/s. ``--profile`` adds a torch.profiler split of a train step on a
+   reader batch. It writes and removes ``build/chip_smoke_reader/``.
    Then the script's total time.
 
 The line before the last is a JSON summary of the kernels: each with its
@@ -142,6 +165,7 @@ function where there is one. The last line is ``{"ok": true, "device":
 {...}}``.
 """
 
+import hashlib
 import itertools
 import json
 import re
@@ -150,11 +174,13 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from udal_tpu_torch import cli
 from udal_tpu_torch.apps import calibration
 from udal_tpu_torch.apps.calibrate_model import Calibrate
 from udal_tpu_torch.apps.infer import (InferImages, consistency_check, read_prediction_data,
@@ -169,12 +195,18 @@ from udal_tpu_torch.models.ensemble import init_ensemble, stack_variables
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
                                                 activation_fn, backbone_spec,
                                                 block_input_sizes)
+from udal_tpu_torch.data.dataloader import InputReader
+from udal_tpu_torch.data.dataset_creators import kitti_to_tfrecord
+from udal_tpu_torch.data.image_codec import decode_image, encode_png
+from udal_tpu_torch.data.label_maps import get_label_map
 from udal_tpu_torch.data.synthetic import synthetic_batch
 from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms, packed
-from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8
+from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8, resize_bilinear_uint8
 from udal_tpu_torch.tools import perf_packed
 from udal_tpu_torch.train import loop, train_lib
-from udal_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, swap_in_ema
+from udal_tpu_torch.train.callbacks import COCOCallback
+from udal_tpu_torch.utils.checkpoint import (latest_checkpoint, load_checkpoint,
+                                             restore_checkpoint, swap_in_ema)
 
 MAIN_PATH = dict(image_size="1024x512", num_classes=8, loss_attenuation=True,
                  mc_dropout=True, mc_dropoutrate=0.05, mc_dropoutsamp=10)
@@ -1271,6 +1303,321 @@ def phase9(dev, smi):
     torch.cuda.empty_cache()
 
 
+# phase 10: KITTI's training operating point fed from TFRecords of PNG frames
+READER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_reader"
+KITTI_FRAMES, KITTI_TRAIN_FRAMES = 48, 32
+CLI_EPOCHS, CLI_STEPS = 2, 4
+KITTI_CLASSES = ("Car", "Van", "Truck", "Pedestrian", "Person_sitting", "Cyclist", "Tram")
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_jpeg"
+STEP_BUDGET_MS = 373.7          # KITTI's training step on the H100 (PERF.md §5): 8 images a step
+
+
+def kitti_frame(rng, h, w):
+    """A KITTI-sized frame: smooth colour fields (a coarse grid of random
+    colours, bilinearly enlarged) with pixel noise, under 1-10 flat boxes
+    of KITTI's classes; its ``label_2`` lines."""
+    low = rng.randint(0, 256, (max(2, h // 32), max(2, w // 32), 3)).astype(np.uint8)
+    img = resize_bilinear_uint8(low, (h, w)).astype(np.int16)
+    img += rng.randint(-6, 7, img.shape).astype(np.int16)
+    lines = []
+    for _ in range(rng.randint(1, 11)):
+        bh, bw = rng.randint(h // 10, h // 2), rng.randint(w // 20, w // 4)
+        y1, x1 = rng.randint(0, h - bh), rng.randint(0, w - bw)
+        cls = KITTI_CLASSES[rng.randint(len(KITTI_CLASSES))]
+        img[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+        lines.append(f"{cls} 0.00 0 0.00 {x1:.2f} {y1:.2f} {x1 + bw:.2f} {y1 + bh:.2f} "
+                     "1.50 1.60 3.90 0.00 1.50 10.00 0.00")
+    return np.clip(img, 0, 255).astype(np.uint8), lines
+
+
+def write_kitti_layout(root, frames, native, seed):
+    """``image_2/*.png`` (the port's encoder, 8 threads) and ``label_2/*.txt``
+    of ``frames`` frames, then ``kitti_to_tfrecord`` into train and val.
+    Returns (train file, val file, seconds)."""
+    t0 = time.perf_counter()
+    (root / "image_2").mkdir(parents=True)
+    (root / "label_2").mkdir()
+    rng = np.random.RandomState(seed)
+    drawn = [kitti_frame(rng, *native) for _ in range(frames)]
+
+    def write(i):
+        img, lines = drawn[i]
+        (root / "image_2" / f"{i:06d}.png").write_bytes(encode_png(img))
+        (root / "label_2" / f"{i:06d}.txt").write_text("\n".join(lines) + "\n")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(frames)))
+    stems = [f"{i:06d}" for i in range(frames)]
+    train, val = str(root / "train.tfrecord"), str(root / "val.tfrecord")
+    n_train = kitti_to_tfrecord(str(root / "image_2"), str(root / "label_2"), train,
+                                indices=stems[:KITTI_TRAIN_FRAMES])
+    n_val = kitti_to_tfrecord(str(root / "image_2"), str(root / "label_2"), val,
+                              indices=stems[KITTI_TRAIN_FRAMES:])
+    if (n_train, n_val) != (KITTI_TRAIN_FRAMES, frames - KITTI_TRAIN_FRAMES):
+        raise AssertionError(f"kitti_to_tfrecord wrote {n_train} + {n_val} records")
+    return train, val, time.perf_counter() - t0
+
+
+def derived_hparams(src, dst, **overrides):
+    """``src``'s yaml with ``overrides`` put in place of its lines for
+    those keys (or added): the file the CLI reads with the port's reader."""
+    lines = [line for line in Path(src).read_text().splitlines()
+             if line.split(":", 1)[0].strip() not in overrides]
+    lines += [f"{k}: {v}" for k, v in overrides.items()]
+    Path(dst).write_text("\n".join(lines) + "\n")
+    return str(dst)
+
+
+def reader_rate(pattern, cfg, batches=3, **kw):
+    """img/s of a training reader over ``batches`` batches of BATCH, after
+    a first batch that warms it (and starts its workers)."""
+    reader = InputReader(pattern, True, prefetch=2, seed=0, **kw)
+    it = reader(cfg, BATCH)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    dt = time.perf_counter() - t0
+    it.close()
+    return batches * BATCH / dt
+
+
+def jpeg_rates():
+    """Decode every committed JPEG fixture and hold it to the sha256 of
+    cv2's decode; img/s of the decode alone at 1 and 8 threads."""
+    hashes = json.loads((JPEG_FIXTURES / "hashes.json").read_text())
+    data = {name: (JPEG_FIXTURES / name).read_bytes() for name in hashes}
+    for name, blob in data.items():
+        got = hashlib.sha256(decode_image(blob).tobytes()).hexdigest()
+        if got != hashes[name]:
+            raise AssertionError(f"JPEG fixture {name}: decode sha256 {got}, cv2's "
+                                 f"{hashes[name]}")
+    blobs = list(data.values()) * 4
+    rates = {}
+    for threads in (1, 8):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(decode_image, blobs))
+        rates[threads] = len(blobs) / (time.perf_counter() - t0)
+    return sorted(hashes), rates
+
+
+def phase10(dev, smi, profiled=False, native=KITTI_NATIVE, extra=None):
+    """KITTI's training operating point fed from TFRecords: a KITTI layout
+    of PNG frames written by the port's encoder and ``kitti_to_tfrecord``;
+    ``cli train`` (the KITTI hparams file with map_freq and save_freq 1,
+    batch 8, CLI_EPOCHS x CLI_STEPS) with the COCO callback every epoch,
+    its launches asserted 1/1/15 a validation batch; one epoch with
+    ``--device_resize``; ``cli eval`` and ``inspect --mode validate`` from
+    the checkpoint, the eval's COCO numbers held to the callback's with
+    dropout off; the reader alone on the host and the JPEG fixtures. ``extra`` adds
+    hparams (a CPU rehearsal's small size). Writes and removes
+    ``build/chip_smoke_reader/``."""
+    path, _ = KITTI_TRAIN
+    shutil.rmtree(READER_DIR, ignore_errors=True)
+    train, val, write_s = write_kitti_layout(READER_DIR / "kitti", KITTI_FRAMES, native, 30)
+    hparams = derived_hparams(path, READER_DIR / "kitti_train.yaml", map_freq=1, save_freq=1,
+                              **(extra or {}))
+    eval_hparams = derived_hparams(hparams, READER_DIR / "kitti_eval.yaml", mc_dropout="false")
+    n_val = KITTI_FRAMES - KITTI_TRAIN_FRAMES
+    common = ["--batch_size", str(BATCH), "--val_file_pattern", val, "--eval_samples",
+              str(n_val), "--device", str(dev)]
+    phase(10, f"KITTI layout: {KITTI_FRAMES} PNG frames {native[0]}x{native[1]} "
+              f"({sum(p.stat().st_size for p in (READER_DIR / 'kitti' / 'image_2').iterdir()) / KITTI_FRAMES / 1e6:.2f} "
+              f"MB a frame), TFRecords {KITTI_TRAIN_FRAMES} train + {n_val} val in "
+              f"{write_s:.1f} s")
+
+    steps, callbacks, real_step = [], [], loop.train_step
+    real_callback = COCOCallback.__call__
+
+    def timed_step(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_step(*args, **kwargs)
+        sync(dev)
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    def timed_callback(self, epoch, state, writer=None):
+        reset_counts()
+        serve_s, build_s = [], []
+        real_driver = self.driver
+
+        def timed_driver(state):
+            t0 = time.perf_counter()
+            driver = real_driver(state)
+            build_s.append(time.perf_counter() - t0)
+            for name in ("serve_detections_preprocessed", "serve_detections_preprocessed_uint8"):
+                entry = getattr(driver, name)
+
+                def timed(*args, _entry=entry, **kwargs):
+                    t1 = time.perf_counter()
+                    out = _entry(*args, **kwargs)
+                    sync(dev)
+                    serve_s.append(time.perf_counter() - t1)
+                    return out
+                setattr(driver, name, timed)
+            return driver
+
+        self.driver = timed_driver
+        t0 = time.perf_counter()
+        try:
+            ap = real_callback(self, epoch, state, writer)
+        finally:
+            del self.driver
+        sync(dev)
+        callbacks.append((time.perf_counter() - t0, counts(), fused_dw.path_launches["fast"],
+                          self.val_steps, ap, sum(serve_s), sum(build_s)))
+        return ap
+
+    runs = {}
+    loop.train_step, COCOCallback.__call__ = timed_step, timed_callback
+    try:
+        for name, flags, epochs in (("classic", [], CLI_EPOCHS),
+                                    ("device_resize", ["--device_resize"], 1)):
+            steps.clear()
+            model_dir = str(READER_DIR / f"model_{name}")
+            t0 = time.perf_counter()
+            hist = cli.main(["train", "--train_file_pattern", train, "--model_dir", model_dir,
+                             "--hparams", hparams, "--num_epochs", str(epochs),
+                             "--steps_per_epoch", str(CLI_STEPS), *flags, *common])
+            runs[name] = (hist, list(steps), time.perf_counter() - t0, model_dir)
+    finally:
+        loop.train_step, COCOCallback.__call__ = real_step, real_callback
+
+    hist, step_s, wall, model_dir = runs["classic"]
+    ms = statistics.median(step_s[1:]) * 1e3
+    losses = hist["loss"] + hist["val_loss"]
+    if len(step_s) != CLI_EPOCHS * CLI_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"cli train: {len(step_s)} steps, losses {losses}")
+    if latest_checkpoint(model_dir) != CLI_EPOCHS:
+        raise AssertionError(f"cli train: no checkpoint of epoch {CLI_EPOCHS} in {model_dir}")
+    aps = hist.get("AP", [])
+    if len(aps) != CLI_EPOCHS or not all(0.0 <= ap <= 1.0 for ap in aps):
+        raise AssertionError(f"cli train: the callback's APs {aps}")
+    check_callback_launches(callbacks)
+    cb_ms = [c[0] * 1e3 for c in callbacks]
+    cb_split = ", ".join(f"{c[0] * 1e3:.0f} = serves {c[5] * 1e3:.0f} + driver build "
+                         f"{c[6] * 1e3:.0f} + reader and COCO matching "
+                         f"{(c[0] - c[5] - c[6]) * 1e3:.0f}" for c in callbacks)
+    wait = hist["input_wait"]
+    phase(10, f"cli train ({path} via the port's YAML reader, map_freq 1, batch {BATCH}): "
+              f"{CLI_EPOCHS} epochs x {CLI_STEPS} steps in {wall:.1f} s, {ms:.1f} ms/step "
+              f"(median of steps 2-{len(step_s)}, each timed to a synchronisation; first "
+              f"{step_s[0] * 1e3:.0f} ms), {BATCH / ms * 1e3:.1f} img/s; input wait "
+              f"{wait['wait_s']:.2f} s of {wait['total_s']:.2f} s iterating "
+              f"({wait['wait_fraction']:.1%}); losses {hist['loss']}, val {hist['val_loss']}; "
+              f"COCO callback AP {aps}; ms an evaluation of {n_val} images: {cb_split}; "
+              f"launches a call {[c[1] for c in callbacks]}; {smi}")
+    dr_hist, dr_steps, dr_wall, _ = runs["device_resize"]
+    dr_ms = statistics.median(dr_steps[1:]) * 1e3
+    if len(dr_steps) != CLI_STEPS or not np.all(np.isfinite(dr_hist["loss"])):
+        raise AssertionError(f"cli train --device_resize: {len(dr_steps)} steps, "
+                             f"losses {dr_hist['loss']}")
+    phase(10, f"cli train --device_resize (native {native[0]}x{native[1]} uint8, warped on "
+              f"the card): 1 epoch x {CLI_STEPS} steps in {dr_wall:.1f} s, {dr_ms:.1f} ms/step "
+              f"(classic contract {ms:.1f}); input wait "
+              f"{dr_hist['input_wait']['wait_fraction']:.1%}; {smi}")
+    if profiled:
+        cfg = get_detection_config("efficientdet-d0").override(hparams)
+        cfg.override({"batch_size": BATCH}, allow_new_keys=True)
+        state, schedule = train_lib.create_train_state(cfg, CLI_STEPS, device=dev)
+        it = InputReader(train, True, prefetch=0)(cfg, BATCH)
+        images, labels = next(it)
+        it.close()
+        labels = {k: v for k, v in labels.items() if not isinstance(v, list)}
+        profile_calls("phase 10 train step", lambda: real_step(
+            cfg, schedule, CLI_STEPS, state, images, labels), ms)
+        del state
+
+    # cli eval from the checkpoint with dropout off, against the callback on
+    # the same weights and val file
+    cfg_off = get_detection_config("efficientdet-d0").override(eval_hparams)
+    cfg_off.override({"batch_size": BATCH}, allow_new_keys=True)
+    state, _ = train_lib.create_train_state(cfg_off, CLI_STEPS, device=dev)
+    restore_checkpoint(model_dir, state)
+    val_reader = InputReader(val, False)
+    callback = COCOCallback(cfg_off, lambda: val_reader(cfg_off, BATCH), n_val // BATCH,
+                            str(READER_DIR / "eval_logs"), get_label_map(cfg_off.label_map))
+    want = callback.evaluate(callback.driver(state))[0]
+    del state
+    reset_counts()
+    t0 = time.perf_counter()
+    results = cli.main(["eval", "--model_dir", model_dir, "--hparams", eval_hparams,
+                        "--fine_grid", *common])
+    sync(dev)
+    eval_s, eval_launches = time.perf_counter() - t0, counts()
+    # every number on the 0.05 grid, not the AP alone: a few random-weight
+    # boxes overlap groundtruth at the low IoUs, where the numbers are not 0
+    diff = {k: abs(results[k] - v) for k, v in want.items()}
+    nonzero = sorted(k for k, v in want.items() if v > 0)
+    if results.keys() - {"ECE"} != want.keys() or max(diff.values()) > 1e-6 or not nonzero \
+            or not np.isfinite(results["ECE"]):
+        raise AssertionError(f"cli eval {results} against the callback's {want} on the same "
+                             f"weights, dropout off: largest difference {max(diff.values())}, "
+                             f"{len(nonzero)} numbers above 0")
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = cli.main(["inspect", "--mode", "validate", "--model_dir", model_dir, "--hparams",
+                     hparams, "--output_dir", str(READER_DIR / "validate"), *common])
+    sync(dev)
+    inspect_s, inspect_launches = time.perf_counter() - t0, counts()
+    if not (READER_DIR / "validate" / "validate_results.txt").exists():
+        raise AssertionError("inspect --mode validate wrote no validate_results.txt")
+    check_serve_launches("cli eval", eval_launches, n_val // BATCH)
+    check_serve_launches("inspect --mode validate", inspect_launches, n_val // BATCH)
+    phase(10, f"cli eval --fine_grid (dropout off, from {Path(model_dir).name}/"
+              f"ckpt_{CLI_EPOCHS}): AP {results['AP']:.6f}, the callback's {want['AP']:.6f}; all "
+              f"{len(want)} numbers within {max(diff.values()):.1e} of the callback's, "
+              f"{len(nonzero)} above 0 (AP@0.05 {want['AP@0.05']:.6f}); ECE "
+              f"{results['ECE']:.4f}; "
+              f"{n_val} images in {eval_s:.2f} s ({n_val / eval_s:.1f} img/s, driver build and "
+              f"reader included), launches {eval_launches}; inspect --mode validate (MC "
+              f"dropout): {len(rows)} groundtruths in {inspect_s:.2f} s "
+              f"({n_val / inspect_s:.1f} img/s), launches {inspect_launches}; {smi}")
+
+    # the reader alone on the host: decode + resize + labels (classic contract)
+    cfg = get_detection_config("efficientdet-d0").override(hparams)
+    need = BATCH / STEP_BUDGET_MS * 1e3
+    rates = {f"{t} threads": reader_rate(train, cfg, num_workers=t) for t in (1, 4, 8)}
+    rates["4 processes"] = reader_rate(train, cfg, num_proc=4)
+    fast = {f"{t} threads": reader_rate(train, cfg, num_workers=t, fast_input=True)
+            for t in (1, 8)}
+    names, jpeg = jpeg_rates()
+    phase(10, "reader alone, training batches of {BATCH}, img/s: PNG decode + f32 resize + "
+              "per-level labels (the classic contract, cli train's default) ".format(BATCH=BATCH)
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + "; PNG decode + uint8 resize + compact groundtruth (--fast_input) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in fast.items())
+          + f"; a {STEP_BUDGET_MS} ms step needs {need:.1f} img/s (classic best "
+          f"{max(rates.values()):.1f}, fast_input best {max(fast.values()):.1f}); JPEG "
+          f"1280x720 decode img/s: 1 thread {jpeg[1]:.1f}, 8 threads {jpeg[8]:.1f} "
+          f"({', '.join(names)}: each decode's sha256 equals cv2's); {smi}")
+    shutil.rmtree(READER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_callback_launches(calls):
+    """Each COCO callback call launched (fused_dw, fused_expand_dw,
+    soft_nms) 1/15/1 times a validation batch, the depthwise on its fast
+    path."""
+    for seconds, launches, fast, batches, *_ in calls:
+        if launches != (batches, 15 * batches, batches) or fast != batches:
+            raise AssertionError(f"COCO callback: launches {launches} (fast path {fast}) over "
+                                 f"{batches} validation batches, want 1/15/1 a batch")
+
+
+def check_serve_launches(what, launches, batches):
+    """An app's serves over ``batches`` batches: 1/15/1 launches a batch."""
+    if launches != (batches, 15 * batches, batches):
+        raise AssertionError(f"{what}: launches {launches} over {batches} batches, want "
+                             f"1/15/1 a batch")
+
+
 def main():
     start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -1403,6 +1750,11 @@ def main():
     t0 = time.perf_counter()
     phase9(dev, smi)
     phase(9, f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. training and evaluation fed from TFRecords, through the CLI ------
+    t0 = time.perf_counter()
+    phase10(dev, smi, "--profile" in sys.argv[1:])
+    phase(10, f"done in {time.perf_counter() - t0:.1f} s")
 
     kernel_ms, plain_ms = times["gaussian"]
     # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per

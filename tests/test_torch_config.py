@@ -1,5 +1,7 @@
 """The PyTorch port's config module against ``udal_tpu.config``."""
 
+import pathlib
+
 import pytest
 
 pytest.importorskip("torch")
@@ -34,12 +36,42 @@ def test_override_equals_jax(override):
     assert got.as_dict() == want.as_dict()
 
 
-def test_unknown_key_and_yaml_path_raise():
+def test_unknown_key_and_yaml_path_raise(tmp_path):
+    """An unknown key raises; a yaml path is read by the port's own YAML
+    reader (equal to the JAX package's override with the same file), and
+    yaml outside the reader's flat subset raises."""
     cfg = torch_config.get_detection_config("efficientdet-d0")
     with pytest.raises(KeyError):
         cfg.override("no_such_key=1")
-    with pytest.raises(ValueError, match="yaml"):
-        cfg.override("configs/whatever.yaml")
+    path = str(pathlib.Path(__file__).resolve().parents[1] /
+               "configs/train/allclasses_mcdropout_lossatt.yaml")
+    assert cfg.override(path).as_dict() == \
+        jax_config.get_detection_config("efficientdet-d0").override(path).as_dict()
+    nested = tmp_path / "nested.yaml"
+    nested.write_text("nms_configs:\n  method: hard\n")
+    with pytest.raises(ValueError, match="YAML"):
+        cfg.override(str(nested))
+
+
+@pytest.mark.parametrize("text", ["a: 0x10", "a: 0o7", "a: 07", "a: 1_000", "a: 1e5",
+                                  "a: .5", "a: .inf", "a: -.Inf", "a: .nan", "a: 2020-01-01",
+                                  "a: 1:30", 'a: "tab\\t"', "a: [1, 2]", "a: &x 1",
+                                  "a:\n  b: 1"])
+def test_yaml_outside_the_subset_raises(text):
+    """YAML that ``yaml.safe_load`` reads as another number, a timestamp, an
+    escape, a collection or an anchor raises rather than reading as a string."""
+    with pytest.raises(ValueError, match="YAML|yaml|outside"):
+        torch_config.parse_yaml(text)
+
+
+@pytest.mark.parametrize("text,want", [
+    ("a: 1\nb: -2.5\nc: 1.0e-05\nd: yes\ne: ~\nf: 'it''s'\ng: \"x y\"\nh: p/q # c\n",
+     {"a": 1, "b": -2.5, "c": 1e-05, "d": True, "e": None, "f": "it's", "g": "x y",
+      "h": "p/q"}),
+    ("---\n# only a comment\n", None)])
+def test_yaml_subset_reads_as_safe_load(text, want):
+    yaml = pytest.importorskip("yaml")
+    assert torch_config.parse_yaml(text) == want == yaml.safe_load(text)
 
 
 @pytest.mark.parametrize("size,level", [(512, 7), ("1024x512", 7), ("640x384", 8),

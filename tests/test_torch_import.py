@@ -81,6 +81,33 @@ def test_apps_import_nothing_the_card_machine_lacks():
     assert [m for m in out if _forbidden(m)] == []
 
 
+def test_reader_cli_and_evaluation_import_nothing_the_card_machine_lacks():
+    """The reader (TFRecords, the tf.Example codec, the image codec, the
+    resize, worker processes, composition, the dataset writers, synthetic
+    TFRecords), COCO evaluation, the callback, the YAML reader, the CLI and
+    the runner load with none of JAX, flax, yaml, the JAX package, sklearn,
+    cv2, PIL or matplotlib."""
+    code = ("import sys, udal_tpu_torch.data.tfrecord, udal_tpu_torch.data.example_codec, "
+            "udal_tpu_torch.data.image_codec as ic, udal_tpu_torch.data.host_io, "
+            "udal_tpu_torch.data.dataloader as d, udal_tpu_torch.data.mp_loader, "
+            "udal_tpu_torch.data.composition, udal_tpu_torch.data.dataset_creators, "
+            "udal_tpu_torch.data.synthetic as s, udal_tpu_torch.eval.coco, "
+            "udal_tpu_torch.train.callbacks, udal_tpu_torch.train.runner, "
+            "udal_tpu_torch.cli as cli; "
+            "from udal_tpu_torch.config import load_yaml, parse_yaml; "
+            "from udal_tpu_torch.ops.image_ops import resize_bilinear_uint8; "
+            "[d.InputReader, ic.decode_image, ic.encode_png, s.write_synthetic_dataset, "
+            "cli.build_parser(), cli.main]; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    for module in ("torch", "zlib", "udal_tpu_torch.data.image_codec",
+                   "udal_tpu_torch.data.dataloader", "udal_tpu_torch.eval.coco",
+                   "udal_tpu_torch.train.callbacks", "udal_tpu_torch.cli"):
+        assert module in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
 def test_packed_microbench_imports_no_jax_or_the_jax_script():
     """The port's packed-layout tool runs on the machine with the card."""
     code = ("import sys, udal_tpu_torch.tools.perf_packed, udal_tpu_torch.ops.packed; "

@@ -145,15 +145,23 @@ def test_threshold_metrics_and_jsd_match_jax(tmp_path):
     assert (tmp_path / "port.txt").read_text() == (tmp_path / "jax.txt").read_text()
 
 
-def test_label_maps_match_jax():
+def test_label_maps_match_jax(tmp_path):
+    """Registry names, dicts and yaml files (read by the port's own YAML
+    reader) give the JAX package's maps; yaml outside the reader's flat
+    subset raises."""
     for name in ("KITTI", "BDD", "COCO", "VOC", "WAYMO"):
         assert getattr(label_maps, name) == getattr(jax_maps, name)
     for name in ("kitti", "bdd", "coco", "voc", "waymo"):
         assert label_maps.get_label_map(name) == jax_maps.get_label_map(name)
     assert label_maps.get_label_map(None) is None
     assert label_maps.get_label_map({1: "a"}) == {1: "a"}
-    with pytest.raises(ValueError, match="yaml"):
-        label_maps.get_label_map("configs/label_map.yaml")
+    path = tmp_path / "label_map.yaml"
+    path.write_text("# a label map\n1: car\n2: 'van'\n3: \"truck\"  # quoted\n")
+    assert label_maps.get_label_map(str(path)) == jax_maps.get_label_map(str(path)) == \
+        {1: "car", 2: "van", 3: "truck"}
+    path.write_text("classes:\n  1: car\n")
+    with pytest.raises(ValueError, match="YAML"):
+        label_maps.get_label_map(str(path))
 
 
 def test_get_ocl_trc_matches_jax(tmp_path):

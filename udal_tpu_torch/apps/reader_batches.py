@@ -15,6 +15,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from udal_tpu_torch.data.dataloader import denormalize_image
+
 
 def is_fast_batch(images) -> bool:
     """True for a uint8 batch (numpy or torch), read without a copy."""
@@ -55,19 +57,6 @@ def groundtruth_from_labels(labels: Dict) -> np.ndarray:
     area = (gb[..., 2] - gb[..., 0]) * (gb[..., 3] - gb[..., 1])
     return np.concatenate([gb, np.zeros_like(area)[..., None], area[..., None],
                            gc[..., None]], axis=-1)
-
-
-def normalize_image(image, mean_rgb, stddev_rgb) -> np.ndarray:
-    """uint8 (or float) pixels to normalised f32."""
-    x = np.asarray(image).astype(np.float32)
-    return (x - np.asarray(mean_rgb, np.float32)) / np.asarray(stddev_rgb, np.float32)
-
-
-def denormalize_image(images, mean_rgb, stddev_rgb) -> np.ndarray:
-    """Normalised images back to clipped uint8 pixels."""
-    x = np.asarray(images, np.float32) * np.asarray(stddev_rgb, np.float32) \
-        + np.asarray(mean_rgb, np.float32)
-    return np.clip(np.round(x), 0, 255).astype(np.uint8)
 
 
 def raw_pixels_from_batch(images, labels: Dict, config) -> np.ndarray:

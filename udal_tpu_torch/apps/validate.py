@@ -31,9 +31,9 @@ import numpy as np
 from udal_tpu_torch.apps.calibration import (CalibrateBoxUncert, CalibrateClass,
                                              gt_box_assigner, load_calibrators, relativize)
 from udal_tpu_torch.apps.infer import split_serve_outputs
-from udal_tpu_torch.apps.reader_batches import (denormalize_image, groundtruth_from_labels,
-                                                is_fast_batch, normalize_image,
+from udal_tpu_torch.apps.reader_batches import (groundtruth_from_labels, is_fast_batch,
                                                 serve_reader_batch)
+from udal_tpu_torch.data.dataloader import denormalize_image, normalize_image
 from udal_tpu_torch.data.label_maps import get_ocl_trc
 
 AUGMENTS = ("heq", "alb", "aug", "flip")

@@ -1,16 +1,26 @@
 """Hierarchical dot-dict config, the detection defaults and the model tables.
 
-Port of ``udal_tpu/config.py`` without its yaml file loader: the serving
-path must import on a machine that has no ``yaml``. ``Config``,
-``default_detection_configs``, the d0-d7x / lite tables,
-``get_detection_config``, ``parse_image_size`` and ``get_feat_sizes`` give
-the same values as the JAX package (held by ``tests/test_torch_config.py``).
+Port of ``udal_tpu/config.py``. ``Config``, ``default_detection_configs``,
+the d0-d7x / lite tables, ``get_detection_config``, ``parse_image_size``
+and ``get_feat_sizes`` give the same values as the JAX package (held by
+``tests/test_torch_config.py``).
+
+The machine with the card has no ``yaml``, so the port reads the YAML the
+repo's files use with its own reader (``load_yaml`` / ``parse_yaml``): a
+flat mapping of ``key: scalar`` lines with comments, a leading ``---``,
+quoted strings (no escapes), decimal numbers, booleans and null, each
+resolved as ``yaml.safe_load`` resolves it (YAML 1.1), or a JSON object (what
+``Config.save_to_yaml`` writes: JSON is YAML, so ``yaml.safe_load`` reads
+it too). Anything else raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import ast
 import copy
+import json
+import math
+import re
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 
@@ -101,9 +111,9 @@ class Config:
             value = value.as_dict()
         if isinstance(value, str):
             if value.endswith((".yaml", ".yml")):
-                raise ValueError("yaml config files are read by udal_tpu.config; "
-                                 "pass a dict or a k=v string here")
-            value = self._parse_kv_string(value)
+                value = load_yaml(value) or {}
+            else:
+                value = self._parse_kv_string(value)
         if not isinstance(value, dict):
             raise ValueError(f"Cannot override config from {value!r}")
         self._override_dict(value, allow_new_keys)
@@ -140,8 +150,135 @@ class Config:
             out[k] = v.as_dict() if isinstance(v, Config) else copy.deepcopy(v)
         return out
 
+    def save_to_yaml(self, path: str) -> None:
+        """Write the config as JSON text, which is YAML: ``load_yaml`` and
+        ``yaml.safe_load`` both read it back. Floats are written with a
+        point and a signed exponent (``1.0e-05``), as YAML 1.1 needs to
+        read them as floats; a value that is not finite raises."""
+        with open(path, "w") as f:
+            f.write(_to_json(self.as_dict()) + "\n")
+
     def copy(self) -> "Config":
         return Config(self.as_dict())
+
+
+def _to_json(value: Any, indent: int = 0) -> str:
+    pad, inner = " " * indent, " " * (indent + 2)
+    if isinstance(value, dict):
+        if not value:
+            return "{}"
+        items = [f"{inner}{json.dumps(str(k))}: {_to_json(v, indent + 2)}"
+                 for k, v in value.items()]
+        return "{\n" + ",\n".join(items) + "\n" + pad + "}"
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_to_json(v, indent + 2) for v in value) + "]"
+    if isinstance(value, float):
+        if not math.isfinite(value):
+            raise ValueError(f"save_to_yaml cannot write the non-finite float {value}")
+        text = repr(value)
+        if "e" in text and "." not in text.split("e")[0]:
+            text = text.replace("e", ".0e")
+        return text
+    if value is None or isinstance(value, (bool, int, str)):
+        return json.dumps(value)
+    raise ValueError(f"save_to_yaml cannot write {type(value).__name__} values")
+
+
+# the implicit scalars of the repo's files as ``yaml.safe_load`` (YAML 1.1)
+# resolves them: null, booleans, decimal ints and floats
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_BOOL = {v: True for v in ("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON")}
+_YAML_BOOL.update({v: False for v in ("no", "No", "NO", "false", "False", "FALSE", "off",
+                                      "Off", "OFF")})
+_YAML_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
+_YAML_FLOAT = re.compile(r"^[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?$")
+# what YAML 1.1 reads as another number, a timestamp or a non-finite float
+_YAML_OTHER_NUMBER = re.compile(r"^(?:[-+]?\.?[0-9]|[-+]?\.(?:inf|Inf|INF)$|\.(?:nan|NaN|NAN)$)")
+
+
+def _outside(where: str, text: str) -> ValueError:
+    return ValueError(f"{where}: {text!r} is outside the YAML subset the port reads "
+                      "(flat key: scalar mappings of null, booleans, decimal numbers "
+                      "and strings)")
+
+
+def _yaml_plain(text: str, where: str) -> Any:
+    """A plain (unquoted) scalar resolved as YAML 1.1 resolves it."""
+    if (text and text[0] in "[]{}&*!|>%@`\"',") or text.startswith(("- ", "? ", "<<")) or \
+            text == "-" or ": " in text or text.endswith(":"):
+        raise _outside(where, text)
+    if text in _YAML_NULL:
+        return None
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if _YAML_INT.match(text):
+        return int(text)
+    if _YAML_FLOAT.match(text):
+        return float(text)
+    if _YAML_OTHER_NUMBER.match(text):
+        raise _outside(where, text)
+    return text
+
+
+def _yaml_scalar(text: str, where: str) -> Any:
+    """A scalar with its trailing comment: quoted (a double-quoted string
+    without escapes) or plain."""
+    text = text.strip()
+    if text[:1] in ("'", '"'):
+        quote = text[0]
+        end = text.find(quote, 1)
+        while end > 0 and quote == "'" and text[end + 1:end + 2] == "'":   # '' is a quote
+            end = text.find(quote, end + 2)
+        if end < 0:
+            raise ValueError(f"{where}: unterminated quoted string")
+        body, rest = text[1:end], text[end + 1:].strip()
+        if quote == '"' and "\\" in body:
+            raise _outside(where, text)
+        if rest and not rest.startswith("#"):
+            raise ValueError(f"{where}: text after a quoted string: {rest!r}")
+        return body.replace("''", "'") if quote == "'" else body
+    comment = re.search(r"\s#", text)
+    if comment:
+        text = text[:comment.start()].rstrip()
+    return _yaml_plain(text, where)
+
+
+def parse_yaml(text: str, name: str = "<yaml>") -> Any:
+    """The document of ``text``: None when it holds no content, else a
+    dict. Raises ValueError outside the subset the module docstring names."""
+    body = "\n".join(line for line in text.splitlines()
+                     if line.strip() and not line.lstrip().startswith("#"))
+    if body.lstrip().startswith("{"):
+        return json.loads(body)
+    out: Dict[Any, Any] = {}
+    started = False
+    for n, line in enumerate(text.splitlines(), 1):
+        where = f"{name}:{n}"
+        stripped = line.rstrip()
+        if not stripped.strip() or stripped.lstrip().startswith("#"):
+            continue
+        if stripped.startswith("---"):
+            rest = stripped[3:].strip()
+            if started or (rest and not rest.startswith("#")):
+                raise ValueError(f"{where}: one document with a leading '---' only")
+            started = True
+            continue
+        started = True
+        if line[:1] in (" ", "\t"):
+            raise ValueError(f"{where}: indented (nested) YAML is outside the subset the "
+                             "port reads")
+        m = re.match(r"^([^:#'\"]+?):(?:\s+(.*))?$", stripped)
+        if m is None:
+            raise ValueError(f"{where}: {stripped!r} is not a 'key: value' line")
+        key = _yaml_plain(m.group(1).strip(), where)
+        out[key] = _yaml_scalar(m.group(2) or "", where)
+    return out if out else None
+
+
+def load_yaml(path: str) -> Any:
+    """``parse_yaml`` of a file."""
+    with open(path) as f:
+        return parse_yaml(f.read(), path)
 
 
 def default_detection_configs() -> Config:

@@ -2,9 +2,9 @@
 
 Port of the parts of ``udal_tpu/data/label_maps.py`` the apps read: the
 class-id maps (background = 0, real classes from 1) and ``get_ocl_trc``.
-The machine with the card has no yaml, so a label map comes as None, a
-dict or a registry name; a ``.yaml`` path raises, as the port's
-``config.py`` does for yaml config files.
+A label map comes as None, a dict, a registry name or a ``.yaml`` path,
+read by the port's own YAML reader (``config.load_yaml``: the machine with
+the card has no ``yaml``).
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Dict, List, Optional, Tuple, Union
+
+from udal_tpu_torch.config import load_yaml
 
 KITTI = {1: "car", 2: "van", 3: "truck", 4: "pedestrian",
          5: "person_sitting", 6: "cyclist", 7: "tram"}
@@ -52,8 +54,8 @@ _REGISTRY = {"kitti": KITTI, "bdd": BDD, "coco": COCO, "voc": VOC,
 
 
 def get_label_map(mapping: Union[None, str, Dict]) -> Optional[Dict[int, str]]:
-    """A label map from None, a dict, a Config (``as_dict``) or a registry
-    name (kitti, bdd, coco, voc, waymo)."""
+    """A label map from None, a dict, a Config (``as_dict``), a yaml path or
+    a registry name (kitti, bdd, coco, voc, waymo)."""
     if not mapping or isinstance(mapping, dict):
         return mapping
     if hasattr(mapping, "as_dict"):
@@ -61,8 +63,7 @@ def get_label_map(mapping: Union[None, str, Dict]) -> Optional[Dict[int, str]]:
     if not isinstance(mapping, str):
         raise TypeError(f"a label map is a dict or a str, got {type(mapping).__name__}")
     if mapping.endswith((".yaml", ".yml")):
-        raise ValueError("yaml label maps are read by udal_tpu.data.label_maps; pass a dict "
-                         "or a registry name here")
+        return load_yaml(mapping)
     return _REGISTRY[mapping]
 
 

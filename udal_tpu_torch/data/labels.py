@@ -41,12 +41,19 @@ def build_labels(config, gt_boxes, gt_classes, pseudo_scores=None) -> Dict[str, 
         labels[f"cls_targets_{level}"] = cls_t[level]
         labels[f"box_targets_{level}"] = box_t[level]
     labels["mean_num_positives"] = torch.mean(num_pos).expand(gt_boxes.shape[0]).contiguous()
+    labels["groundtruth_data"] = groundtruth_data(gt_boxes, gt_classes, pseudo_scores)
+    return labels
 
+
+def groundtruth_data(gt_boxes, gt_classes, pseudo_scores=None) -> torch.Tensor:
+    """[B, M, 7(+1)] rows [y1, x1, y2, x2, is_crowd (0), area, class(,
+    pseudo score)] of padded groundtruth."""
+    gt_boxes = torch.as_tensor(gt_boxes, dtype=torch.float32)
     area = ((gt_boxes[..., 2] - gt_boxes[..., 0]) *
             (gt_boxes[..., 3] - gt_boxes[..., 1]))
     cols = [gt_boxes[..., 0], gt_boxes[..., 1], gt_boxes[..., 2], gt_boxes[..., 3],
-            torch.zeros_like(area), area, gt_classes.to(torch.float32)]
+            torch.zeros_like(area), area,
+            torch.as_tensor(gt_classes, device=gt_boxes.device).to(torch.float32)]
     if pseudo_scores is not None:
-        cols.append(torch.as_tensor(pseudo_scores, dtype=torch.float32, device=device))
-    labels["groundtruth_data"] = torch.stack(cols, dim=-1)
-    return labels
+        cols.append(torch.as_tensor(pseudo_scores, dtype=torch.float32, device=gt_boxes.device))
+    return torch.stack(cols, dim=-1)

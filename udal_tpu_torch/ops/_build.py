@@ -1,12 +1,15 @@
-"""Build the port's CUDA sources into shared libraries at first use.
+"""Build the port's CUDA and host C++ sources into shared libraries at
+first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/udal_tpu_torch/`` at the
 repository root, then loaded with ``ctypes``. The library's file name carries
 a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source is rebuilt and an unchanged one is reused. ``build`` starts
-one ``nvcc`` per missing library, all at once. Nothing here runs at import
-time.
+one ``nvcc`` per missing library, all at once. ``csrc/<name>.cc`` (the
+input pipeline's host loops) is compiled the same way by the system's C++
+compiler (``load_host_library``); a missing compiler raises. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Iterable
 
@@ -100,3 +104,48 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+_host_lock = threading.Lock()
+
+
+def find_cxx() -> str:
+    """Path of the system's C++ compiler: $CXX, then ``c++``, then ``g++``."""
+    for c in (os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++")):
+        if c and shutil.which(c):
+            return shutil.which(c)
+    raise RuntimeError("no C++ compiler found ($CXX, c++, g++): the port's host "
+                       "library (csrc/host_io.cc) cannot be built")
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cc`` is built, keyed by a hash of source and flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cc").read_bytes())
+    digest.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cc`` with the system's C++ compiler if its
+    library is missing (one build at a time in a process; concurrent
+    processes race harmlessly through an atomic rename), then load it.
+    Raises RuntimeError when there is no compiler or the build fails."""
+    out = host_library_path(name)
+    with _host_lock:
+        if not out.exists():
+            cxx = find_cxx()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, str(CSRC / f"{name}.cc")],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed on csrc/{name}.cc:\n{proc.stderr}")
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+    return ctypes.CDLL(str(out))

@@ -1,6 +1,6 @@
 """Image operations on the device: the bilinear warp of native-size frames
-(port of ``udal_tpu/ops/image_ops.py``) and cv2's Gaussian blur of uint8
-frames.
+(port of ``udal_tpu/ops/image_ops.py``), cv2's Gaussian blur of uint8
+frames and cv2's bilinear resize of uint8 frames.
 
 ``warp_resize_batch`` resizes each image by its own per-axis scale and
 crops it at its own offset, onto a fixed output canvas: the device half of
@@ -17,13 +17,24 @@ the card cannot import: cv2's bit-exact 8-bit path, σ = 0.3·((k−1)/2 − 1)
 carried from tap to tap, the centre tap taking what is left of 256),
 BORDER_REFLECT_101, a horizontal then a vertical pass in integers and one
 rounding at the end.
+
+``resize_bilinear_uint8`` is ``cv2.resize(image, (w, h),
+interpolation=cv2.INTER_LINEAR)`` on uint8, the input reader's resize,
+bit for bit: cv2's 8-bit path, source positions (d + 0.5)·(in/out) − 0.5
+in f32, weights in fixed point with 11 fraction bits (each rounded on its
+own), a horizontal pass in int32 (columns clamped, the weight at a clamped
+edge 1), then cv2's vectorised vertical pass: each row sum shifted right
+by 4, multiplied by its 11-bit weight keeping the high 16 bits, the two
+added and rounded off by 2 more bits (rows clamped at the edges). numpy in,
+numpy out on the host; a tensor in, a tensor out on its device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -120,3 +131,89 @@ def gaussian_blur_uint8(images, ksize: int = 9, device=None) -> torch.Tensor:
     rows = sum(t * x[:, :, i:i + w] for i, t in enumerate(taps))          # < 2^16
     out = sum(t * rows[:, i:i + h] for i, t in enumerate(taps))           # < 2^24
     return ((out + (1 << 15)) >> 16).to(torch.uint8)
+
+
+def _linear_taps(src: int, dst: int, clamp_weights: bool
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(first index, second index, first weight, second weight) of each of
+    ``dst`` outputs over ``src`` inputs, weights in 11-bit fixed point,
+    computed as cv2 computes them. ``clamp_weights`` (the horizontal
+    axis): a position past an edge takes that edge's pixel with weight 1;
+    otherwise (the vertical axis) only the rows are clamped."""
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5
+         ).astype(np.float32)
+    i = np.floor(f).astype(np.int64)
+    f = (f - i.astype(np.float32)).astype(np.float32)
+    if clamp_weights:
+        low, high = i < 0, i >= src - 1
+        f = np.where(low | high, np.float32(0), f)
+        i = np.where(low, 0, np.where(high, src - 1, i))
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    return np.clip(i, 0, src - 1), np.clip(i + 1, 0, src - 1), w0, w1
+
+
+ImageLike = Union[np.ndarray, torch.Tensor]
+
+
+def resize_bilinear_uint8(image: ImageLike, size_hw: Tuple[int, int]) -> ImageLike:
+    """``cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR)`` of a
+    uint8 image [H, W] or [H, W, C], for ``size_hw`` = (h, w): numpy on the
+    host for a numpy array, torch on the tensor's device for a tensor."""
+    if image.dtype not in (np.uint8, torch.uint8):
+        raise ValueError(f"resize_bilinear_uint8 takes uint8, got {image.dtype}")
+    h, w = int(size_hw[0]), int(size_hw[1])
+    x0, x1, a0, a1 = _linear_taps(image.shape[1], w, clamp_weights=True)
+    y0, y1, b0, b1 = _linear_taps(image.shape[0], h, clamp_weights=False)
+    cols = (None, slice(None)) + (None,) * (image.ndim - 2)     # broadcast along W
+    rows = (slice(None),) + (None,) * (image.ndim - 1)          # broadcast along H
+    if isinstance(image, torch.Tensor):
+        x0, x1, a0, a1, y0, y1, b0, b1 = (torch.from_numpy(v).to(image.device)
+                                          for v in (x0, x1, a0, a1, y0, y1, b0, b1))
+        px = image.to(torch.int32)
+        s = (px[:, x0] * a0[cols] + px[:, x1] * a1[cols]) >> 4
+        v = (((s[y0] * b0[rows]) >> 16) + ((s[y1] * b1[rows]) >> 16) + 2) >> 2
+        return v.clamp(0, 255).to(torch.uint8)
+    s = np.take(image, x0, axis=1).astype(np.int32)             # in place: the reader's hot loop
+    s *= a0[cols]
+    s1 = np.take(image, x1, axis=1).astype(np.int32)
+    s1 *= a1[cols]
+    s += s1
+    s >>= 4
+    v = np.take(s, y0, axis=0)
+    v *= b0[rows]
+    v >>= 16
+    v1 = np.take(s, y1, axis=0)
+    v1 *= b1[rows]
+    v1 >>= 16
+    v += v1
+    v += 2
+    v >>= 2
+    return np.clip(v, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_float(image: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR)`` of a
+    float32 image [H, W, C] on the host: the same sample positions and
+    edge clamping as the uint8 path, the weights and both passes' sums in
+    f32 as cv2 computes them (the two agree to a few f32 ulps: cv2's
+    vectorised sums may fuse their multiply-adds)."""
+    h, w = int(size_hw[0]), int(size_hw[1])
+    x = np.asarray(image, np.float32)
+
+    def taps(src, dst, clamp_weights):
+        f = (np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5
+        i = np.floor(f).astype(np.int64)
+        f = (f - i).astype(np.float32)
+        if clamp_weights:
+            low, high = i < 0, i >= src - 1
+            f = np.where(low | high, np.float32(0), f)
+            i = np.where(low, 0, np.where(high, src - 1, i))
+        return np.clip(i, 0, src - 1), np.clip(i + 1, 0, src - 1), np.float32(1) - f, f
+
+    x0, x1, a0, a1 = taps(x.shape[1], w, True)
+    y0, y1, b0, b1 = taps(x.shape[0], h, False)
+    cols = (None, slice(None)) + (None,) * (x.ndim - 2)
+    rows = (slice(None),) + (None,) * (x.ndim - 1)
+    s = np.take(x, x0, axis=1) * a0[cols] + np.take(x, x1, axis=1) * a1[cols]
+    return np.take(s, y0, axis=0) * b0[rows] + np.take(s, y1, axis=0) * b1[rows]

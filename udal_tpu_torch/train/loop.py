@@ -1,12 +1,13 @@
 """Epoch loop: train, validate, checkpoint, resume and stop early.
 
 Port of ``udal_tpu/train/loop.py``'s ``train_and_evaluate`` on one device
-(the mesh and the COCO callback are not ported): an epoch of
-``steps_per_epoch`` steps from ``train_iter``, one ``train_step`` call a
-step, the validation loss through ``eval_step``, a checkpoint
-every ``save_freq`` epochs keeping the newest ``keep_checkpoint_max``
-(at least 2), a resume from the latest checkpoint in ``model_dir``, and
-early stopping that restores the best state.
+(the mesh is not ported): an epoch of ``steps_per_epoch`` steps from
+``train_iter``, one ``train_step`` call a step, the validation loss
+through ``eval_step``, the COCO AP every ``map_freq`` epochs
+(``train/callbacks.py``), a checkpoint every ``save_freq`` epochs keeping
+the newest ``keep_checkpoint_max`` (at least 2), a resume from the latest
+checkpoint in ``model_dir``, and early stopping that restores the best
+state.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from udal_tpu_torch.data.label_maps import get_label_map
+from udal_tpu_torch.train.callbacks import COCOCallback
 from udal_tpu_torch.train.train_lib import (create_train_state, eval_step, resolve_device,
                                             train_step)
 from udal_tpu_torch.utils.checkpoint import (load_payload, restore_checkpoint,
@@ -50,7 +53,8 @@ class EarlyStopping:
 def train_and_evaluate(config, train_iter: Iterator, steps_per_epoch: int, model_dir: str,
                        val_iter_fn: Optional[Callable[[], Iterator]] = None,
                        val_steps: int = 0, seed: int = 0, device=None,
-                       log_fn: Callable[[str], None] = print) -> Dict[str, List[float]]:
+                       log_fn: Callable[[str], None] = print,
+                       coco_eval_fn: Optional[Callable] = None) -> Dict[str, List[float]]:
     """Train for ``config.num_epochs`` epochs on ``device`` (the card
     unless ``device="cpu"``); returns the history: ``loss`` and
     ``val_loss`` per epoch, and ``final_state``.
@@ -63,7 +67,11 @@ def train_and_evaluate(config, train_iter: Iterator, steps_per_epoch: int, model
 
     The host reads a loss only every ``host_sync_every`` steps (8), one
     that many steps old, so it runs ahead of the device; the epoch's mean
-    is read once at its end. ``steps_per_execution`` is accepted and has
+    is read once at its end. Every ``map_freq`` epochs (when there is a
+    validation stream and ``map_freq`` > 0) ``coco_eval_fn(epoch, state,
+    metrics_writer)`` returns the AP, recorded as ``history["AP"]``; by
+    default a ``COCOCallback`` over ``val_iter_fn`` writing under
+    ``model_dir/logs``. ``steps_per_execution`` is accepted and has
     no effect: eager PyTorch has no multi-step program to amortise a
     call's dispatch over, and k single steps give the same state and
     history as the JAX package's k-step call.
@@ -77,6 +85,14 @@ def train_and_evaluate(config, train_iter: Iterator, steps_per_epoch: int, model
     keep_n = max(2, int(config.get("keep_checkpoint_max", 5) or 5))
     metrics_writer = MetricsWriter(os.path.join(model_dir, "logs"))
     sync_every = max(1, int(config.get("host_sync_every", 8) or 8))
+    map_freq = int(config.get("map_freq", 0) or 0)
+    if coco_eval_fn is None and val_iter_fn is not None and val_steps > 0 and map_freq > 0:
+        try:
+            label_map = get_label_map(config.get("label_map"))
+        except KeyError:                # a name the registry lacks: numbered classes
+            label_map = None
+        coco_eval_fn = COCOCallback(config, val_iter_fn, val_steps,
+                                    os.path.join(model_dir, "logs"), label_map=label_map)
 
     def next_batch():
         images, labels = next(train_iter)
@@ -108,6 +124,11 @@ def train_and_evaluate(config, train_iter: Iterator, steps_per_epoch: int, model
             val_loss = float(torch.stack(vlosses).float().mean())
             history["val_loss"].append(val_loss)
             msg += f" val_loss={val_loss:.4f}"
+
+        if coco_eval_fn is not None and map_freq > 0 and (epoch + 1) % map_freq == 0:
+            ap = coco_eval_fn(epoch + 1, state, metrics_writer)
+            history.setdefault("AP", []).append(float(ap))
+            msg += f" AP={ap:.4f}"
 
         log_fn(msg)
         metrics_writer.write(epoch + 1, {
