@@ -148,6 +148,25 @@ exit code:
    (``tests/data/torch_jpeg``) decoded to the sha256 of cv2's decode, with
    img/s. ``--profile`` adds a torch.profiler split of a train step on a
    reader batch. It writes and removes ``build/chip_smoke_reader/``.
+11. augmentation, active learning and SSL at the main path's operating
+   point (8 classes, 1024x512, MC T=10 at rate 0.05, loss attenuation,
+   the KITTI training file's other hparams with save_freq 1, batch 8,
+   bf16), on 96 KITTI PNG frames written as phase 10 writes them: the
+   training reader with autoaugment_policy v0, randaug and albu (img/s on
+   1 and 8 threads, uint8 contract, beside no policy); ``cli al`` over a
+   pool of 48 (entropy, budgets 25,25, 4 steps an iteration): each train
+   step's ms, ``collect_pool``'s ms and img/s with its serves' stream time
+   (CUDA events, no synchronisation) against its wall time, 1/15/1
+   launches a pool batch asserted, and a rerun that resumes to the same
+   selection with no step and no launch; the whole pool scored again by the
+   trained model in the classic and the uint8 reader contracts (wall time
+   and the serves' stream time of each); ``cli ssl --method stac
+   --stac_randaug`` (16 labelled, 32 unlabelled, tau 0, 4 teacher and 4
+   student steps) with 1/15/1 launches a pseudo-label batch asserted, and
+   ``cli ssl --method csd`` (4 steps); ``Validator(infer_augment=[heq, alb,
+   aug, flip])`` on one batch: 20 serves at 1/15/1 asserted, the variants'
+   stream time on the card against the same variants made image by image
+   on the host. It writes and removes ``build/chip_smoke_al/``.
    Then the script's total time.
 
 The line before the last is a JSON summary of the kernels: each with its
@@ -185,7 +204,7 @@ from udal_tpu_torch.apps import calibration
 from udal_tpu_torch.apps.calibrate_model import Calibrate
 from udal_tpu_torch.apps.infer import (InferImages, consistency_check, read_prediction_data,
                                        split_serve_outputs)
-from udal_tpu_torch.apps.serving import ServingDriver
+from udal_tpu_torch.apps.serving import ServingDriver, checkpoint_state_dict
 from udal_tpu_torch.apps.thresholding import UncertOptimal, read_optimal_thresholds
 from udal_tpu_torch.apps.validate import Validator, read_validate_results
 from udal_tpu_torch.config import get_detection_config, parse_image_size
@@ -199,6 +218,7 @@ from udal_tpu_torch.data.dataloader import InputReader
 from udal_tpu_torch.data.dataset_creators import kitti_to_tfrecord
 from udal_tpu_torch.data.image_codec import decode_image, encode_png
 from udal_tpu_torch.data.label_maps import get_label_map
+from udal_tpu_torch.data import tfrecord
 from udal_tpu_torch.data.synthetic import synthetic_batch
 from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms, packed
 from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8, resize_bilinear_uint8
@@ -1116,7 +1136,7 @@ class ServeClock:
     wrapper around its three packed entries, which every app reaches)."""
 
     def __init__(self, driver):
-        self.calls, self.seconds = 0, 0.0
+        self.calls, self.seconds, self.device = 0, 0.0, driver.device
         for name in ("serve", "serve_preprocessed", "serve_preprocessed_uint8"):
             setattr(driver, name, self._timed(getattr(driver, name)))
 
@@ -1124,7 +1144,7 @@ class ServeClock:
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            sync(self.device)
             self.seconds += time.perf_counter() - t0
             self.calls += 1
             return out
@@ -1596,6 +1616,307 @@ def phase10(dev, smi, profiled=False, native=KITTI_NATIVE, extra=None):
     torch.cuda.empty_cache()
 
 
+# phase 11: augmentation, active learning and semi-supervised learning at the
+# main path's operating point, on phase 10's layout of KITTI PNG frames
+AL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_al"
+AL_POOL, SSL_LABELED, SSL_UNLABELED = 48, 16, 32
+AL_BUDGETS, AL_STEPS, SSL_STEPS = "25,25", 4, 4
+POLICIES = ("v0", "randaug", "albu")
+
+
+class DeviceClock:
+    """CUDA events around each call of a method (no synchronisation): the
+    stream time of the calls, read once the work is done; host time on the
+    CPU."""
+
+    def __init__(self, dev):
+        self.cuda = torch.device(dev).type == "cuda"
+        self.spans, self.host, self.calls = [], 0.0, 0
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            if self.cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+            out = fn(*args, **kwargs)
+            if self.cuda:
+                end.record()
+                self.spans.append((start, end))
+            self.host += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return timed
+
+    def device_ms(self):
+        if not self.cuda:
+            return float("nan")
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def per_serve(n):
+    """(fused_dw, fused_expand_dw, soft_nms) launches of n serves."""
+    return (n, 15 * n, n)
+
+
+def al_args(hparams, pool, work, dev, strategy="entropy"):
+    return ["al", "--pool_file_pattern", pool, "--work_dir", work, "--strategy", strategy,
+            "--budgets", AL_BUDGETS, "--batch_size", str(BATCH), "--num_epochs", "1",
+            "--steps_per_epoch", str(AL_STEPS), "--hparams", hparams, "--device", str(dev)]
+
+
+def phase11(dev, smi, native=KITTI_NATIVE, extra=None):
+    """Augmentation, active learning and SSL at the main path's operating
+    point (``MAIN_PATH``'s 8 classes, 1024x512, MC T=10 at rate 0.05, loss
+    attenuation, on the KITTI training file's other hparams, save_freq 1),
+    batch 8, bf16, on a KITTI layout of PNG frames as phase 10 writes it:
+    the training reader with each policy of ``POLICIES`` (img/s on 1 and 8
+    threads, uint8 contract); ``cli al`` over a pool of AL_POOL frames
+    (entropy, budgets AL_BUDGETS, AL_STEPS steps an iteration): ms of each
+    training and of ``collect_pool`` (its serves' stream time against its
+    wall time: the host's share), img/s scored, 1/15/1 launches a pool
+    batch, and a rerun that resumes to the same selection with no launch;
+    ``cli ssl --method stac --stac_randaug`` (SSL_LABELED labelled,
+    SSL_UNLABELED unlabelled frames, SSL_STEPS teacher and student steps)
+    with 1/15/1 launches a pseudo-label batch; ``cli ssl --method csd``;
+    ``Validator`` with all four ``infer_augment`` modes on one batch: 20
+    serves at 1/15/1 each, the variants' stream time on the card against
+    the same variants made image by image on the host, as the JAX package
+    makes them.
+    ``extra`` adds hparams (a CPU rehearsal's small size). Writes and
+    removes ``build/chip_smoke_al/``."""
+    from udal_tpu_torch.apps import al_scoring
+    from udal_tpu_torch.apps import infer as infer_mod
+    from udal_tpu_torch.data import augment
+
+    path, _ = KITTI_TRAIN
+    shutil.rmtree(AL_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    frames = AL_POOL + SSL_LABELED + SSL_UNLABELED
+    (AL_DIR / "kitti" / "image_2").mkdir(parents=True)
+    (AL_DIR / "kitti" / "label_2").mkdir()
+    rng = np.random.RandomState(31)
+    drawn = [kitti_frame(rng, *native) for _ in range(frames)]
+
+    def write(i):
+        img, lines = drawn[i]
+        (AL_DIR / "kitti" / "image_2" / f"{i:06d}.png").write_bytes(encode_png(img))
+        (AL_DIR / "kitti" / "label_2" / f"{i:06d}.txt").write_text("\n".join(lines) + "\n")
+
+    with ThreadPoolExecutor(8) as pool_exec:
+        list(pool_exec.map(write, range(frames)))
+    stems = [f"{i:06d}" for i in range(frames)]
+    files = {}
+    for name, part in (("pool", stems[:AL_POOL]),
+                       ("labeled", stems[AL_POOL:AL_POOL + SSL_LABELED]),
+                       ("unlabeled", stems[AL_POOL + SSL_LABELED:])):
+        files[name] = str(AL_DIR / f"{name}.tfrecord")
+        if kitti_to_tfrecord(str(AL_DIR / "kitti" / "image_2"), str(AL_DIR / "kitti" / "label_2"),
+                             files[name], indices=part) != len(part):
+            raise AssertionError(f"kitti_to_tfrecord wrote a short {name} file")
+    main = {k: v for k, v in MAIN_PATH.items() if k != "image_size"}
+    hparams = derived_hparams(path, AL_DIR / "kitti_al.yaml",
+                              **{"save_freq": 1, "map_freq": 0, **main, **(extra or {})})
+    cfg = get_detection_config("efficientdet-d0").override(hparams)
+    lines = [f"KITTI layout: {frames} PNG frames {native[0]}x{native[1]} (pool {AL_POOL}, SSL "
+             f"{SSL_LABELED} labelled + {SSL_UNLABELED} unlabelled) in "
+             f"{time.perf_counter() - t_phase:.1f} s; {path} with {main}"]
+
+    # the training reader with each policy (uint8 contract), img/s
+    rates = {}
+    for policy in POLICIES:
+        pc = cfg.copy()
+        pc.autoaugment_policy = policy
+        rates[policy] = {t: reader_rate(files["pool"], pc, num_workers=t, fast_input=True)
+                         for t in (1, 8)}
+    plain = {t: reader_rate(files["pool"], cfg, num_workers=t, fast_input=True) for t in (1, 8)}
+    lines.append("training reader (uint8 contract, batches of 8), img/s on 1 / 8 threads: "
+                 + ", ".join(f"{p} {r[1]:.1f} / {r[8]:.1f}" for p, r in rates.items())
+                 + f"; no policy {plain[1]:.1f} / {plain[8]:.1f}")
+
+    # cli al: training and the pool's scoring timed, launches a pool batch
+    steps, pools = [], []
+    real_step, real_collect = loop.train_step, al_scoring.collect_pool
+
+    def timed_step(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_step(*args, **kwargs)
+        sync(dev)
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    def timed_collect(driver, batches, *args, **kwargs):
+        clock = DeviceClock(dev)
+        driver.serve_preprocessed = clock.wrap(driver.serve_preprocessed)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = real_collect(driver, batches, *args, **kwargs)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        pools.append((wall, clock.device_ms(), clock.calls, counts(),
+                      fused_dw.path_launches["fast"], out.n_images))
+        return out
+
+    work = str(AL_DIR / "al")
+    loop.train_step, al_scoring.collect_pool = timed_step, timed_collect
+    try:
+        t0 = time.perf_counter()
+        selected = cli.main(al_args(hparams, files["pool"], work, dev))
+        al_s = time.perf_counter() - t0
+        reset_counts()
+        n_steps = len(steps)
+        again = cli.main(al_args(hparams, files["pool"], work, dev))
+        resumed = (counts(), len(steps) - n_steps)
+    finally:
+        loop.train_step, al_scoring.collect_pool = real_step, real_collect
+    per_iter = AL_POOL * 25 // 100
+    if len(selected) != 2 * per_iter or len(set(selected)) != len(selected) or \
+            any(n.startswith("__pad") for n in selected):
+        raise AssertionError(f"cli al selected {selected}")
+    if again != selected or resumed != ((0, 0, 0), 0):
+        raise AssertionError(f"cli al rerun: {again} (launches {resumed[0]}, {resumed[1]} "
+                             f"steps) against {selected}")
+    if len(pools) != 1:
+        raise AssertionError(f"cli al scored the pool {len(pools)} times, want 1")
+    wall, dev_ms, serves, launches, fast, scored = pools[0]
+    batches = -(-(AL_POOL - per_iter) // BATCH)
+    if serves != batches or launches != per_serve(batches) or fast != per_serve(batches)[0]:
+        raise AssertionError(f"collect_pool: {serves} serves, launches {launches} (fast path "
+                             f"{fast}) over {batches} batches, want 1/15/1 a batch")
+    step_ms = [s * 1e3 for s in steps[:n_steps]]
+    # the same pool scored again by the trained model, in each reader contract
+    driver = ServingDriver(cfg, checkpoint_state_dict(cfg, str(Path(work) / "iter_1" / "model")),
+                           batch_size=BATCH, device=dev)
+    contracts = {}
+    for name, fast in (("classic", False), ("uint8", True)):
+        it = InputReader(files["pool"], False, names=True, fast_input=fast)(cfg, BATCH)
+        clock = DeviceClock(dev)
+        entry = "serve_preprocessed_uint8" if fast else "serve_preprocessed"
+        setattr(driver, entry, clock.wrap(getattr(driver, entry)))
+        t0 = time.perf_counter()
+        pool_out = real_collect(driver, it)
+        sync(dev)
+        contracts[name] = ((time.perf_counter() - t0) * 1e3, clock.device_ms(),
+                           pool_out.n_images)
+        it.close()
+    del driver
+    lines.append(f"collect_pool over the whole pool of {AL_POOL} with the trained model, ms "
+                 f"(wall, serves' stream time): " + ", ".join(
+                     f"{k} contract {w:.1f}, {d:.1f} ({AL_POOL / w * 1e3:.1f} img/s)"
+                     for k, (w, d, _) in contracts.items()))
+    lines.append(
+        f"cli al (entropy, budgets {AL_BUDGETS} of {AL_POOL}, {AL_STEPS} steps an iteration): "
+        f"{al_s:.1f} s; train steps ms {[round(x, 1) for x in step_ms]} (median "
+        f"{statistics.median(step_ms[1:]):.1f}); collect_pool over {AL_POOL - per_iter} images "
+        f"({batches} batches, {scored} images with detections, padding included): "
+        f"{wall * 1e3:.1f} ms, "
+        f"{(AL_POOL - per_iter) / wall:.1f} img/s scored, serves' stream time {dev_ms:.1f} ms "
+        f"(host share {1 - dev_ms / (wall * 1e3):.1%}), launches {launches} (1/15/1 a batch); "
+        f"the rerun resumed to the same {len(again)} names with no step and no launch")
+
+    # cli ssl: STAC with RandAugment on the pseudo-labelled stream, then CSD
+    real_run = infer_mod.InferImages.run
+    infers = []
+
+    def counted_run(self, batch_iter):
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = real_run(self, batch_iter)
+        sync(dev)
+        infers.append((time.perf_counter() - t0, counts(), len(rows)))
+        return rows
+
+    ssl_common = ["--train_file_pattern", files["labeled"], "--unlabeled_file_pattern",
+                  files["unlabeled"], "--batch_size", str(BATCH), "--num_epochs", "1",
+                  "--steps_per_epoch", str(SSL_STEPS), "--hparams", hparams, "--device",
+                  str(dev)]
+    steps.clear()
+    loop.train_step, infer_mod.InferImages.run = timed_step, counted_run
+    try:
+        t0 = time.perf_counter()
+        arts = cli.main(["ssl", "--method", "stac", "--stac_randaug", "--tau", "0.0",
+                         "--pseudoscore", "--work_dir", str(AL_DIR / "stac"), *ssl_common])
+        stac_s, stac_steps = time.perf_counter() - t0, [s * 1e3 for s in steps]
+        steps.clear()
+        t0 = time.perf_counter()
+        csd_dir = cli.main(["ssl", "--method", "csd", "--csd_ramp", "--work_dir",
+                            str(AL_DIR / "csd"), *ssl_common])
+        csd_s, csd_steps = time.perf_counter() - t0, [s * 1e3 for s in steps]
+    finally:
+        loop.train_step, infer_mod.InferImages.run = real_step, real_run
+    n_batches = -(-SSL_UNLABELED // BATCH)
+    if len(infers) != 1 or infers[0][1] != per_serve(n_batches):
+        raise AssertionError(f"STAC's pseudo-label round: launches {infers} over {n_batches} "
+                             f"batches, want 1/15/1 a batch")
+    pseudo = len(list(tfrecord.iterate_tfrecord(arts[0])))
+    if len(stac_steps) != 2 * SSL_STEPS or len(csd_steps) != SSL_STEPS or not pseudo or \
+            latest_checkpoint(csd_dir) != 1:
+        raise AssertionError(f"cli ssl: {len(stac_steps)} STAC and {len(csd_steps)} CSD steps, "
+                             f"{pseudo} pseudo-labelled records, CSD checkpoint "
+                             f"{latest_checkpoint(csd_dir)}")
+    lines.append(
+        f"cli ssl --method stac --stac_randaug ({SSL_LABELED} labelled, {SSL_UNLABELED} "
+        f"unlabelled, tau 0): {stac_s:.1f} s; teacher + student steps ms "
+        f"{[round(x, 1) for x in stac_steps]}; pseudo-label round {infers[0][0] * 1e3:.1f} ms, "
+        f"{infers[0][2]} rows, {pseudo} records, launches {infers[0][1]} (1/15/1 a batch); "
+        f"cli ssl --method csd: {csd_s:.1f} s, steps ms {[round(x, 1) for x in csd_steps]}")
+
+    # the Validator's four inference-time augmentations on one batch
+    driver = ServingDriver(cfg, random_state_dict(cfg), batch_size=BATCH, device=dev)
+    h, w = parse_image_size(cfg.image_size)
+    images, labels = synthetic_batch(np.random.RandomState(32), BATCH, h, w, cfg.num_classes)
+    labels["image_names"] = [f"val_{i}.png" for i in range(BATCH)]
+    val = Validator(driver, str(AL_DIR / "val"), infer_augment=["heq", "alb", "aug", "flip"])
+    vclock = DeviceClock(dev)
+    for name in ("heq", "weather", "corruption"):
+        setattr(val.variants, name, vclock.wrap(getattr(val.variants, name)))
+    serve_clock = ServeClock(driver)
+    reset_counts()
+    t0 = time.perf_counter()
+    vrows = val.run([(images, labels)])
+    sync(dev)
+    val_s = time.perf_counter() - t0
+    launches = counts()
+    if serve_clock.calls != 20 or launches != per_serve(20) or \
+            fused_dw.path_launches["fast"] != per_serve(20)[0]:
+        raise AssertionError(f"Validator with heq/alb/aug/flip: {serve_clock.calls} serves, "
+                             f"launches {launches}, want 20 serves at 1/15/1")
+    tags = {r["image_name"].split("@")[-1] for r in vrows if "@" in r["image_name"]}
+    t0 = time.perf_counter()
+    for im in images:                      # the same variants image by image on the host
+        augment.AugmentVariants("cpu").heq(torch.from_numpy(im)[None])
+        for weather in ("snow", "fog", "rain", "noise"):
+            augment.add_weather(im, weather)
+        for kind in ("ns", "mb", "ct", "br"):
+            augment.apply_corruption(kind, im)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    lines.append(
+        f"Validator(infer_augment=[heq, alb, aug, flip]) on one batch of {BATCH}: "
+        f"{val_s:.2f} s, {serve_clock.calls} serves ({serve_clock.seconds * 1e3:.0f} ms to a "
+        f"synchronisation), launches {launches} (1/15/1 a serve), {len(vrows)} rows, "
+        f"{len(tags)} variant tags with rows; the 17 variants besides the flips: stream time "
+        f"{vclock.device_ms():.2f} ms (host {vclock.host * 1e3:.1f} ms to enqueue, the shape's "
+        f"draws made on the first call); the same variants image by image on the host "
+        f"(the per-image functions, the JAX package's layout of the work) {host_ms:.0f} ms")
+    del driver
+    for line in lines:
+        phase(11, line)
+    phase(11, f"d0 {h}x{w}, {cfg.num_classes} classes, MC T={cfg.mc_dropoutsamp}, bf16, batch "
+              f"{BATCH}; {smi}")
+    shutil.rmtree(AL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def random_state_dict(cfg):
+    """Random weights of ``cfg``'s model, drawn as flax's initializers draw
+    them from seed 0."""
+    model = EfficientDetNet(cfg)
+    init_flax_style(model, torch.Generator().manual_seed(0))
+    return model.state_dict()
+
+
 def sync(dev):
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
@@ -1755,6 +2076,11 @@ def main():
     t0 = time.perf_counter()
     phase10(dev, smi, "--profile" in sys.argv[1:])
     phase(10, f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. augmentation, active learning and SSL at full width ---------------
+    t0 = time.perf_counter()
+    phase11(dev, smi)
+    phase(11, f"done in {time.perf_counter() - t0:.1f} s")
 
     kernel_ms, plain_ms = times["gaussian"]
     # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per

@@ -895,3 +895,51 @@ def test_gaussian_blur_on_the_card_equals_the_cpu(cuda):
     images = np.random.RandomState(5).randint(0, 256, (2, 67, 131, 3)).astype(np.uint8)
     assert torch.equal(gaussian_blur_uint8(images, 9, cuda).cpu(),
                        gaussian_blur_uint8(images, 9, "cpu"))
+
+
+@pytest.mark.cuda
+def test_augment_variants_on_the_card_equal_the_cpu(cuda):
+    """The Validator's variants (heq, the four weathers, the four ladders)
+    made on the card from a uint8 batch equal the same code on the CPU:
+    bit for bit, but the rain's f32 Gaussian (the card may fuse its
+    multiply-adds: a uint8 value off by at most 1 on at most 0.1% of the
+    pixels)."""
+    from udal_tpu_torch.data.augment import AugmentVariants
+
+    images = torch.from_numpy(np.random.RandomState(6).randint(0, 256, (3, 67, 131, 3))
+                              .astype(np.uint8))
+    card, host = AugmentVariants(cuda), AugmentVariants("cpu")
+    assert torch.equal(card.heq(images.to(cuda)).cpu(), host.heq(images))
+    for weather in ("snow", "fog", "rain", "noise"):
+        got = card.weather(images.to(cuda), weather).cpu()
+        want = host.weather(images, weather)
+        diff = (got.int() - want.int()).abs()
+        if weather == "rain":
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+        else:
+            assert torch.equal(got, want), weather
+    for kind in ("ns", "mb", "ct", "br", "bl"):
+        for g, w in zip(card.corruption(images.to(cuda), kind), host.corruption(images, kind)):
+            assert torch.equal(g.cpu(), w), kind
+
+
+@pytest.mark.cuda
+def test_collect_pool_on_the_card_launches_each_kernel_per_batch(no_tf32):
+    """``collect_pool`` over three batches queued on the card: 1/15/1
+    launches of fused_dw / fused_expand_dw / soft-NMS a batch, and the pool
+    the CPU driver gives, as sets of detections."""
+    from udal_tpu_torch.apps import al_scoring
+
+    frames = np.random.RandomState(9).randint(0, 256, (6, 96, 160, 3)).astype(np.uint8)
+    batches = [(frames[i:i + 2], [f"f{i + j}" for j in range(2)]) for i in range(0, 6, 2)]
+    driver = small_driver(no_tf32, {})
+    before = kernel_counts()
+    pool = al_scoring.collect_pool(driver, iter(batches), inflight=8)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (3, 45, 3)
+    host = al_scoring.collect_pool(small_driver("cpu", {}), iter(batches))
+    assert pool.names == host.names
+    for i in range(pool.n_images):
+        np.testing.assert_allclose(np.sort(pool.feats["det_score"][i][pool.mask[i]]),
+                                   np.sort(host.feats["det_score"][i][host.mask[i]]),
+                                   rtol=1e-4, atol=1e-5)

@@ -108,6 +108,30 @@ def test_reader_cli_and_evaluation_import_nothing_the_card_machine_lacks():
     assert [m for m in out if _forbidden(m)] == []
 
 
+def test_augmentation_active_and_semi_supervised_learning_import_nothing_the_card_lacks():
+    """The cv2 replacements, the augmentations and policies, the AL loop,
+    scoring, runner and set similarity, STAC / CSD, their runner and
+    helpers, and the Validator's augmented serves load with none of JAX,
+    flax, yaml, the JAX package, sklearn, cv2, PIL or matplotlib."""
+    code = ("import sys, udal_tpu_torch.ops.cv_ops as cv, udal_tpu_torch.data.augment as a, "
+            "udal_tpu_torch.data.autoaugment as aa, udal_tpu_torch.apps.active_learning as al, "
+            "udal_tpu_torch.apps.al_scoring as als, udal_tpu_torch.apps.al_runner as alr, "
+            "udal_tpu_torch.apps.al_eval as ale, udal_tpu_torch.apps.ssl as ssl, "
+            "udal_tpu_torch.apps.ssl_utils as su, udal_tpu_torch.apps.ssl_runner as sr, "
+            "udal_tpu_torch.apps.validate as v, udal_tpu_torch.cli as cli; "
+            "[cv.clahe, cv.lab_to_rgb, a.AugmentVariants, a.apply_policy, aa.apply_op, "
+            "al.ActiveLearning.run, al.phash, als.collect_pool, alr.run_al, ale.Similarity, "
+            "ssl.STAC.run, ssl.CSD.run, su.rcc_collage, sr.run_stac, sr.run_csd, "
+            "v.Validator._augment_variants, cli.cmd_al, cli.cmd_ssl]; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    for module in ("torch", "scipy.fft", "scipy.stats", "udal_tpu_torch.ops.cv_ops",
+                   "udal_tpu_torch.data.autoaugment", "udal_tpu_torch.apps.ssl_runner"):
+        assert module in out
+    assert [m for m in out if _forbidden(m) or m.startswith("tensorflow")] == []
+
+
 def test_packed_microbench_imports_no_jax_or_the_jax_script():
     """The port's packed-layout tool runs on the machine with the card."""
     code = ("import sys, udal_tpu_torch.tools.perf_packed, udal_tpu_torch.ops.packed; "

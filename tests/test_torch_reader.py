@@ -13,8 +13,8 @@ and training batches (flip and scale jitter), in the three contracts:
   key equal to 1e-6.
 
 Also: two worker processes give the single process's batches; a
-producer's error reaches the consumer (thread and process); a training
-reader refuses ``autoaugment_policy``; ``device_put`` puts tensors on the
+producer's error reaches the consumer (thread and process; an unknown
+``autoaugment_policy`` too); ``device_put`` puts tensors on the
 reader's device; the port's synthetic writer, KITTI writer and batch
 composition equal the JAX package's.
 """
@@ -107,9 +107,18 @@ def test_producer_errors_reach_the_consumer(record, tmp_path):
         next(InputReader(bad, False, prefetch=2)(pc, BATCH))
     with pytest.raises(RuntimeError, match="input worker failed: KeyError"):
         next(InputReader(bad, False, prefetch=1, num_proc=1)(pc, BATCH))
-    pc.autoaugment_policy = "v0"
-    with pytest.raises(NotImplementedError, match="A10b"):
+    pc.autoaugment_policy = "v9"
+    with pytest.raises(ValueError, match="unknown policy"):
         next(InputReader(record, True, prefetch=0)(pc, BATCH))
+
+
+def test_training_reader_refuses_fewer_records_than_a_batch(record):
+    """The JAX reader drops the remainder and loops for ever on a file
+    smaller than a batch; the port's training reader says so instead."""
+    _, pc = configs()
+    with pytest.raises(ValueError, match="10 records cannot fill one batch of 16"):
+        next(InputReader(record, True, prefetch=0)(pc, 16))
+    assert next(InputReader(record, True, prefetch=0)(pc, 10))[0].shape[0] == 10
 
 
 def test_device_put_and_wait_stats(record):

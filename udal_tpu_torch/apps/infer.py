@@ -15,8 +15,8 @@ artifacts run in numpy:
 * the top/bottom uncertainty buckets' ``images.txt`` (combined, and per
   kind under ``uncert/``).
 
-Overlay images need an image codec the machine with the card does not
-have; ``save_visualizations=True`` raises ``NotImplementedError``.
+Overlay images need drawing and figures the port does not have yet
+(ROADMAP A12); ``save_visualizations=True`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -108,8 +108,8 @@ class InferImages:
                  bucket_fraction: float = 0.1):
         if save_visualizations:
             raise NotImplementedError(
-                "save_visualizations: the overlays and bucket thumbnails need a PNG codec, "
-                "which waits for the port's image codec (ROADMAP A9b)")
+                "save_visualizations: the overlays and bucket thumbnails need drawing and "
+                "figures beside the port's image codec, not ported yet (ROADMAP A12)")
         self.driver = driver
         self.config = driver.config
         self.save_dir = save_dir

@@ -240,6 +240,21 @@ class ServingDriver:
         return {"latency_ms": dt * 1e3, "fps": images.shape[0] / dt}
 
 
+def checkpoint_state_dict(config: Config, model_dir: Optional[str]) -> Dict[str, torch.Tensor]:
+    """The model weights of ``model_dir``'s latest checkpoint, the EMA
+    swapped in where it was kept; random weights (drawn as flax's
+    initializers draw them from seed 0) when there is no directory or it
+    holds none, as the JAX package's restore leaves a fresh state."""
+    from udal_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, swap_in_ema
+
+    epoch = latest_checkpoint(model_dir) if model_dir else None
+    if epoch is not None:
+        return swap_in_ema(load_checkpoint(model_dir, epoch))
+    model = EfficientDetNet(config)
+    init_flax_style(model, torch.Generator().manual_seed(0))
+    return model.state_dict()
+
+
 def load_ensemble_variables(config: Config, member_dirs: Sequence[str],
                             use_ema: bool = True) -> Dict[str, torch.Tensor]:
     """N members' state dicts from their latest checkpoints (EMA weights

@@ -158,7 +158,8 @@ def epistemic_vs_aleatoric(rows: List[Dict],
 
 
 def export_quadrant_crops(*args, **kwargs):
-    """Per-cell detection crops saved as PNG: needs the port's image codec."""
-    raise NotImplementedError("export_quadrant_crops: the crops are PNG files and their "
-                              "quality score needs the JAX package's uncert_plots; both wait "
-                              "for the port's image codec (ROADMAP A9b)")
+    """Per-cell detection crops saved as PNG with a quality score: not
+    ported yet (ROADMAP A12)."""
+    raise NotImplementedError("export_quadrant_crops: the crops' quality score needs the "
+                              "JAX package's uncert_plots, not ported yet beside the port's "
+                              "image codec (ROADMAP A12)")

@@ -13,10 +13,14 @@ calibrators are applied on the host, and four text artifacts are written:
 * ``validationstep_runtime.txt``: each batch's serve time, then mean, std
   and median after IQR outlier rejection.
 
-Of the inference-time augmentations, ``flip`` (vertical and horizontal)
-runs; ``heq``, ``alb`` and ``aug`` need the port of ``data/augment.py``
-and raise ``NotImplementedError``. The JAX package's calibration panels
-(``aleatoric/``, ``mcdropout/``) need matplotlib and are not written.
+With ``infer_augment``, each batch is also served as variants made on
+the driver's device from its uint8 pixels (``data.augment.AugmentVariants``):
+``heq`` (Y equalised in YUV), ``alb`` (snow, fog, rain, noise), ``aug``
+(noise, motion blur, contrast and brightness ladders of three severities
+each) and ``flip`` (vertical, horizontal): 19 variant serves a batch with
+all four, beside the plain serve; their rows carry ``<name>@<tag>``. The
+JAX package's calibration panels (``aleatoric/``, ``mcdropout/``) need
+matplotlib and are not written.
 """
 
 from __future__ import annotations
@@ -27,13 +31,15 @@ import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from udal_tpu_torch.apps.calibration import (CalibrateBoxUncert, CalibrateClass,
                                              gt_box_assigner, load_calibrators, relativize)
 from udal_tpu_torch.apps.infer import split_serve_outputs
 from udal_tpu_torch.apps.reader_batches import (groundtruth_from_labels, is_fast_batch,
                                                 serve_reader_batch)
-from udal_tpu_torch.data.dataloader import denormalize_image, normalize_image
+from udal_tpu_torch.data.augment import AugmentVariants
+from udal_tpu_torch.data.dataloader import denormalize_image
 from udal_tpu_torch.data.label_maps import get_ocl_trc
 
 AUGMENTS = ("heq", "alb", "aug", "flip")
@@ -62,10 +68,7 @@ class Validator:
         for mode in self.infer_augment or ():
             if mode not in AUGMENTS:
                 raise ValueError(f"infer_augment mode {mode!r} is none of {AUGMENTS}")
-            if mode != "flip":
-                raise NotImplementedError(
-                    f"infer_augment {mode!r}: histogram equalisation, weather and corruption "
-                    f"ladders wait for the port of data/augment.py (ROADMAP A9b)")
+        self.variants = AugmentVariants(driver.device)
         os.makedirs(save_dir, exist_ok=True)
         self.box_calib = self.cls_calib = None
         if calib_dir and os.path.isdir(calib_dir):
@@ -87,7 +90,7 @@ class Validator:
 
             if self.preprocessed_batches:
                 def _serve(im):
-                    if fast:
+                    if fast and not isinstance(im, torch.Tensor):
                         im = np.clip(np.asarray(im), 0, 255).astype(np.uint8)
                     return serve_reader_batch(self.driver, im, labels)
             else:
@@ -106,8 +109,7 @@ class Validator:
                 names = labels.get("image_names", labels.get("source_ids", []))
                 for aug_images, tag in self._augment_variants(raw):
                     if self.preprocessed_batches and not fast:
-                        aug_images = normalize_image(aug_images, self.config.mean_rgb,
-                                                     self.config.stddev_rgb)
+                        aug_images = self._normalize(aug_images)
                     out_a = split_serve_outputs(self.config, _serve(aug_images))
                     for i in range(images.shape[0]):
                         name = f"{names[i]}@{tag}" if len(names) > i else tag
@@ -128,12 +130,31 @@ class Validator:
         self._write_runtimes()
         return rows
 
+    def _normalize(self, images: torch.Tensor) -> torch.Tensor:
+        """``normalize_image`` of a uint8 batch on its device (f32, as numpy
+        computes it)."""
+        dev = images.device
+        mean = torch.tensor(self.config.mean_rgb, dtype=torch.float32, device=dev)
+        std = torch.tensor(self.config.stddev_rgb, dtype=torch.float32, device=dev)
+        return (images.to(torch.float32) - mean) / std
+
     def _augment_variants(self, images: np.ndarray):
-        """(augmented batch, tag) for each configured mode: the flips."""
-        imgs = np.asarray(images, np.uint8)
+        """(augmented uint8 batch on the driver's device, tag) for each
+        configured mode, in the JAX package's order: heq, the alb weathers,
+        the aug ladders, the flips."""
+        imgs = torch.as_tensor(np.asarray(images, np.uint8), device=self.driver.device)
+        if "heq" in self.infer_augment:
+            yield self.variants.heq(imgs), "histeq"
+        if "alb" in self.infer_augment:
+            for weather in ("snow", "fog", "rain", "noise"):
+                yield self.variants.weather(imgs, weather), weather
+        if "aug" in self.infer_augment:
+            for kind in ("ns", "mb", "ct", "br"):
+                for s, rung in enumerate(self.variants.corruption(imgs, kind)):
+                    yield rung, f"{kind}{s}"
         if "flip" in self.infer_augment:
-            yield imgs[:, ::-1].copy(), "vflip"
-            yield imgs[:, :, ::-1].copy(), "hflip"
+            yield torch.flip(imgs, [1]), "vflip"
+            yield torch.flip(imgs, [2]), "hflip"
 
     def _process_image(self, out, i, gt_rows, scale, name, all_scores):
         n_val = int(out["valid_len"][i])

@@ -1,4 +1,4 @@
-"""Command-line entry points: train, train_ssl, eval and inspect.
+"""Command-line entry points: train, train_ssl, eval, inspect, al and ssl.
 
 Port of ``udal_tpu/cli.py`` with its flags and defaults:
 
@@ -10,7 +10,11 @@ Port of ``udal_tpu/cli.py`` with its flags and defaults:
 * ``eval``: COCO evaluation (and the detections' ECE) of a checkpoint over a
   TFRecord, through ``ServingDriver``;
 * ``inspect --mode {inference, auto-label, ssal, calibrate, validate,
-  benchmark}``: the apps over a reader.
+  benchmark}``: the apps over a reader;
+* ``al``: the active-learning loop over a TFRecord pool
+  (``apps.al_runner.run_al``);
+* ``ssl --method {stac, csd}``: STAC's teacher, pseudo-label round and
+  student, or CSD's consistency training (``apps.ssl_runner``).
 
 ``--hparams`` and ``--config`` take yaml files (the port's own reader) or
 ``k=v`` strings. Checkpoints are the port's own (``utils/checkpoint.py``);
@@ -20,9 +24,7 @@ JAX. ``--device`` (default ``cuda``) says where the model runs.
 Not ported, each refused with the reason: ``--tf_checkpoint`` (TF
 checkpoints go TF → flax → torch), ``--compile_cache`` (XLA's cache),
 ``--n_model`` > 1 (ROADMAP A11), ``inspect --mode export`` (StableHLO) and
-``--mode video`` (cv2's video I/O); ``train_ssl --stac_randaug`` and a
-training reader's ``autoaugment_policy`` (ROADMAP A10b); the ``al``,
-``ssl`` and ``parity_kitti`` commands.
+``--mode video`` (cv2's video I/O); the ``parity_kitti`` command.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import os
 import sys
 
 import numpy as np
+
+from udal_tpu_torch.config import config_from_args
 
 
 def _apply_config_file(args) -> None:
@@ -61,34 +65,12 @@ def _refuse_unported(args) -> None:
                          "(ROADMAP A11, multi-GPU)")
 
 
-def _load_config(args):
-    from udal_tpu_torch.config import get_detection_config
-
-    config = get_detection_config(args.model_name)
-    if args.hparams:
-        config.override(args.hparams, allow_new_keys=True)
-    config.override({"batch_size": args.batch_size}, allow_new_keys=True)
-    if args.num_epochs:
-        config.num_epochs = args.num_epochs
-    return config
-
-
 def _restore_weights(args, config):
-    """The model's state dict from the latest checkpoint in
-    ``--model_dir`` with the EMA swapped in where it was kept; random
-    weights (drawn as flax's initializers draw them from seed 0) when the
-    directory holds none, as the JAX CLI's restore leaves a fresh state."""
-    import torch
+    """The weights of ``--model_dir``'s latest checkpoint (random weights
+    from seed 0 without one; ``_`` names no directory)."""
+    from udal_tpu_torch.apps.serving import checkpoint_state_dict
 
-    from udal_tpu_torch.models.efficientdet import EfficientDetNet, init_flax_style
-    from udal_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, swap_in_ema
-
-    epoch = latest_checkpoint(args.model_dir) if args.model_dir != "_" else None
-    if epoch is not None:
-        return swap_in_ema(load_checkpoint(args.model_dir, epoch))
-    model = EfficientDetNet(config)
-    init_flax_style(model, torch.Generator().manual_seed(0))
-    return model.state_dict()
+    return checkpoint_state_dict(config, None if args.model_dir == "_" else args.model_dir)
 
 
 def _fast_reader_flags(args):
@@ -105,7 +87,7 @@ def cmd_train(args):
     from udal_tpu_torch.train.loop import train_and_evaluate
 
     _refuse_unported(args)
-    config = _load_config(args)
+    config = config_from_args(args)
     fast, dev_rs = _fast_reader_flags(args)
     reader = InputReader(args.train_file_pattern, is_training=True,
                          use_fake_data=args.use_fake_data,
@@ -145,10 +127,7 @@ def cmd_train_ssl(args):
     from udal_tpu_torch.train.loop import train_and_evaluate
 
     _refuse_unported(args)
-    if args.stac_randaug and args.ssl_method == "stac":
-        raise NotImplementedError("--stac_randaug: train-time RandAugment (data/augment.py, "
-                                  "data/autoaugment.py) is not ported yet (ROADMAP A10b)")
-    config = _load_config(args)
+    config = config_from_args(args)
     labeled_per_batch = ssl_batch_split(config, args.batch_size, args.ratio)
     config.override({
         "unlabeled_start": labeled_per_batch,
@@ -163,7 +142,10 @@ def cmd_train_ssl(args):
     reader_l = InputReader(args.train_file_pattern, is_training=True,
                            max_instances_per_image=config.max_instances_per_image,
                            fast_input=fast, device_resize=dev_rs)
+    # the unlabelled (pseudo-labelled) stream gets RandAugment on its own config
     cfg_u = copy.deepcopy(config)
+    if args.stac_randaug and args.ssl_method == "stac":
+        cfg_u.autoaugment_policy = "randaug"
     reader_u = InputReader(args.unlabeled_file_pattern, is_training=True,
                            max_instances_per_image=config.max_instances_per_image,
                            fast_input=fast, device_resize=dev_rs)
@@ -199,7 +181,7 @@ def cmd_eval(args):
 
     _apply_config_file(args)
     _refuse_unported(args)
-    config = _load_config(args)
+    config = config_from_args(args)
     driver = ServingDriver(config, _restore_weights(args, config), batch_size=args.batch_size,
                            device=args.device)
     evaluator = COCOEvaluator(label_map=get_label_map(config.label_map),
@@ -284,7 +266,7 @@ def cmd_inspect(args):
         raise SystemExit("inspect --mode video: video I/O needs cv2, which the port does not "
                          "use; decode the frames elsewhere and run --mode inference on them")
     _refuse_unported(args)
-    config = _load_config(args)
+    config = config_from_args(args)
     if getattr(args, "ensemble_dirs", None):
         member_dirs = [d for d in args.ensemble_dirs.split(",") if d]
         driver = ServingDriver.create_ensemble(config, member_dirs, batch_size=args.batch_size,
@@ -336,6 +318,23 @@ def cmd_inspect(args):
         print("calibrators written")
         return out
     raise SystemExit(f"unknown mode {args.mode}")
+
+
+def cmd_al(args):
+    """The active-learning loop; returns the final selection."""
+    from udal_tpu_torch.apps.al_runner import run_al
+
+    _refuse_unported(args)
+    return run_al(args)
+
+
+def cmd_ssl(args):
+    """STAC (the pseudo-TFRecords of its rounds) or CSD (the model's
+    directory)."""
+    from udal_tpu_torch.apps.ssl_runner import run_csd, run_stac
+
+    _refuse_unported(args)
+    return run_stac(args) if args.method == "stac" else run_csd(args)
 
 
 def _not_ported(what: str):
@@ -395,7 +394,7 @@ def build_parser() -> argparse.ArgumentParser:
     ts.add_argument("--ssl_method", choices=["stac", "csd"], default="stac")
     ts.add_argument("--stac_lambda", type=float, default=1.0)
     ts.add_argument("--stac_randaug", action="store_true",
-                    help="not ported (ROADMAP A10b); refused")
+                    help="RandAugment on the unlabelled stream (stac)")
     ts.add_argument("--csd_ramp", action="store_true")
     ts.add_argument("--csd_BE", action="store_true")
     ts.add_argument("--csd_BE_thr", type=float, default=0.5)
@@ -435,37 +434,53 @@ def build_parser() -> argparse.ArgumentParser:
                    help="implies --fast_input; the bilinear resize on the device too")
     i.set_defaults(fn=cmd_inspect)
 
-    a = sub.add_parser("al", help="active-learning loop: not ported yet (ROADMAP A10b)")
+    a = sub.add_parser("al", help="active-learning acquisition loop over a TFRecord pool")
     common(a)
-    a.add_argument("--pool_file_pattern", required=True)
-    a.add_argument("--work_dir", required=True)
-    a.add_argument("--strategy", default="entropy")
-    a.add_argument("--budgets", default="5,5,5,10,20,30,25")
-    a.add_argument("--steps_per_epoch", type=int, default=None)
-    a.add_argument("--opt_params", default=None)
-    a.add_argument("--min_score", type=float, default=0.0)
-    a.add_argument("--prune_thr", type=int, default=None)
+    a.add_argument("--pool_file_pattern", required=True,
+                   help="TFRecord shards of the labelled pool to acquire from")
+    a.add_argument("--work_dir", required=True,
+                   help="per-iteration artifacts in <work_dir>/iter_<i>/ (selected.txt, "
+                        "train.tfrecord, model/); the loop resumes from completed iterations")
+    a.add_argument("--strategy", default="entropy",
+                   help="scoring strategy: random/entropy/mcbox/albox/mcclass/combo/ental/"
+                        "alluncert/epuncert/sota/highep_lowal + mean/calib/norm/perc/bottomk/"
+                        "nee modifiers")
+    a.add_argument("--budgets", default="5,5,5,10,20,30,25",
+                   help="percent of the pool added per iteration")
+    a.add_argument("--steps_per_epoch", type=int, default=None,
+                   help="default: one pass over the current selection")
+    a.add_argument("--opt_params", default=None, help="comma weights for combo strategies")
+    a.add_argument("--min_score", type=float, default=0.0,
+                   help="detection score floor when scoring the pool")
+    a.add_argument("--prune_thr", type=int, default=None,
+                   help="near-duplicate pool pruning at this Hamming distance")
     a.add_argument("--hash_method", default="phash", choices=["phash", "whash"])
-    a.add_argument("--warmup_dir", default=None)
-    a.add_argument("--out_tfrecord", default=None)
+    a.add_argument("--warmup_dir", default=None,
+                   help="completed iter_0 directory of another strategy's run to reuse")
+    a.add_argument("--out_tfrecord", default=None,
+                   help="also write the final selection as a training-ready TFRecord")
     a.add_argument("--seed", type=int, default=0)
-    a.set_defaults(fn=_not_ported("al: the active-learning loop (apps/active_learning.py, "
-                                  "al_scoring, al_eval, al_runner) is not ported yet "
-                                  "(ROADMAP A10b)"))
+    a.set_defaults(fn=cmd_al)
 
-    s = sub.add_parser("ssl", help="STAC/CSD orchestration: not ported yet (ROADMAP A10b)")
+    s = sub.add_parser("ssl", help="STAC/CSD orchestration over TFRecords; train_ssl is the "
+                                   "lower-level student trainer")
     common(s)
     s.add_argument("--method", choices=["stac", "csd"], default="stac")
-    s.add_argument("--train_file_pattern", required=True)
-    s.add_argument("--unlabeled_file_pattern", required=True)
+    s.add_argument("--train_file_pattern", required=True, help="labelled TFRecords")
+    s.add_argument("--unlabeled_file_pattern", required=True,
+                   help="unlabelled pool TFRecords (STAC pseudo-labels these; CSD consumes "
+                        "them directly)")
     s.add_argument("--work_dir", required=True)
-    s.add_argument("--tau", type=float, default=0.5)
-    s.add_argument("--selection_strategy", default="score")
+    s.add_argument("--tau", type=float, default=0.5, help="pseudo-label score threshold")
+    s.add_argument("--selection_strategy", default="score",
+                   help="score / combo / alluncert / epuncert / ental")
     s.add_argument("--stac_lambda", type=float, default=1.0)
     s.add_argument("--stac_randaug", action="store_true")
-    s.add_argument("--pseudoscore", action="store_true")
+    s.add_argument("--pseudoscore", action="store_true",
+                   help="write per-detection pseudo_score weights")
     s.add_argument("--selftrain_rounds", type=int, default=0)
-    s.add_argument("--ratio", type=float, default=0.5)
+    s.add_argument("--ratio", type=float, default=0.5,
+                   help="labelled fraction of each student batch")
     s.add_argument("--csd_ramp", action="store_true")
     s.add_argument("--csd_BE", action="store_true")
     s.add_argument("--csd_BE_thr", type=float, default=0.5)
@@ -473,8 +488,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--min_score", type=float, default=0.0)
     s.add_argument("--steps_per_epoch", type=int, default=None)
     s.add_argument("--seed", type=int, default=0)
-    s.set_defaults(fn=_not_ported("ssl: the STAC/CSD orchestration (apps/ssl.py, ssl_utils, "
-                                  "ssl_runner) is not ported yet (ROADMAP A10b)"))
+    s.set_defaults(fn=cmd_ssl)
 
     pk = sub.add_parser("parity_kitti",
                         help="real-data parity table vs the reference: not to port")

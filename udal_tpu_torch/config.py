@@ -155,11 +155,17 @@ class Config:
         ``yaml.safe_load`` both read it back. Floats are written with a
         point and a signed exponent (``1.0e-05``), as YAML 1.1 needs to
         read them as floats; a value that is not finite raises."""
-        with open(path, "w") as f:
-            f.write(_to_json(self.as_dict()) + "\n")
+        write_yaml(path, self.as_dict())
 
     def copy(self) -> "Config":
         return Config(self.as_dict())
+
+
+def write_yaml(path: str, data: Dict[str, Any]) -> None:
+    """Write ``data`` as JSON text, which is YAML (``save_to_yaml``'s
+    format)."""
+    with open(path, "w") as f:
+        f.write(_to_json(data) + "\n")
 
 
 def _to_json(value: Any, indent: int = 0) -> str:
@@ -494,6 +500,18 @@ def get_detection_config(model_name: str) -> Config:
     if model_name.startswith("efficientdet"):
         return get_efficientdet_config(model_name)
     raise ValueError("model name must start with efficientdet.")
+
+
+def config_from_args(args) -> Config:
+    """The command line's config: ``--model_name``'s, then ``--hparams``
+    (a yaml path or ``k=v`` string), the batch size and the epochs."""
+    config = get_detection_config(args.model_name)
+    if args.hparams:
+        config.override(args.hparams, allow_new_keys=True)
+    config.override({"batch_size": args.batch_size}, allow_new_keys=True)
+    if args.num_epochs:
+        config.num_epochs = args.num_epochs
+    return config
 
 
 ImageSize = Union[int, str, Tuple[int, int]]

@@ -22,9 +22,10 @@ a producer thread (``prefetch``), or in worker processes (``num_proc``,
 ``data.mp_loader``). ``device_put`` copies each batch from pinned host
 memory to ``device`` with ``non_blocking`` copies on the producer thread.
 The default shard is ``torch.distributed``'s rank of its world size when a
-process group is initialised, else 0 of 1. A training reader refuses
-``config.autoaugment_policy``: ``data/augment.py`` and
-``data/autoaugment.py`` are cv2 throughout and are not ported yet.
+process group is initialised, else 0 of 1. A training reader applies
+``config.autoaugment_policy`` (``data/augment.py``'s ``apply_policy``) and
+then ``config.grid_mask`` to the decoded image, before the flip, with the
+reader's own ``rng``, as the JAX reader does.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 from udal_tpu_torch.config import parse_image_size
 from udal_tpu_torch.data import example_codec as codec
 from udal_tpu_torch.data import tfrecord as tfr
+from udal_tpu_torch.data.augment import apply_policy, gridmask
 from udal_tpu_torch.data.image_codec import decode_image
 from udal_tpu_torch.data.labels import build_labels, groundtruth_data
 from udal_tpu_torch.ops.image_ops import resize_bilinear_float, resize_bilinear_uint8
@@ -303,9 +305,9 @@ class InputReader:
         h, w = image.shape[:2]
 
         if self._is_training and config.autoaugment_policy:
-            raise NotImplementedError(
-                f"autoaugment_policy={config.autoaugment_policy!r}: data/augment.py and "
-                "data/autoaugment.py (cv2 throughout) are not ported yet (ROADMAP A10b)")
+            image, boxes = apply_policy(config.autoaugment_policy, image, boxes, rng)
+            if config.grid_mask:
+                image = gridmask(image, rng=rng)
 
         if self._is_training and config.input_rand_hflip and rng.rand() < 0.5:
             image, boxes = horizontal_flip(image, boxes)
@@ -486,6 +488,10 @@ class InputReader:
         index = self._get_index()
         order = self._sharded_order()
         rng = np.random.RandomState(self._seed)
+        if self._is_training and len(order) < batch_size:
+            # the JAX reader loops forever here: it drops the remainder, every epoch
+            raise ValueError(f"a training reader of {len(order)} records cannot fill one "
+                             f"batch of {batch_size}")
         fake_batch = None
         seq = 0
         while True:

@@ -87,11 +87,20 @@ def warp_resize_single(image: torch.Tensor, scale_yx, offset_yx,
     return warp_resize_batch(image[None], scale[None], offset[None], out_hw)[0]
 
 
+# cv2's tables for ksize 1-7 with σ from ksize (getGaussianKernel's small_gaussian_tab)
+SMALL_GAUSSIAN_TABS = {1: [1.0], 3: [0.25, 0.5, 0.25],
+                       5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+                       7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125]}
+
+
 def gaussian_kernel_fixed_point(ksize: int) -> List[int]:
     """cv2's fixed-point Gaussian kernel (8 fraction bits, sum 256) for an
-    odd ``ksize`` >= 9 and σ from ``ksize`` (below 9, cv2 takes tables)."""
-    if ksize < 9 or ksize % 2 == 0:
-        raise ValueError(f"ksize must be odd and at least 9, got {ksize}")
+    odd ``ksize`` and σ from ``ksize``: cv2's tables below 9, else the
+    sampled Gaussian with its rounding error diffused."""
+    if ksize % 2 == 0 or ksize < 1:
+        raise ValueError(f"ksize must be odd and positive, got {ksize}")
+    if ksize in SMALL_GAUSSIAN_TABS:
+        return [int(v * 256) for v in SMALL_GAUSSIAN_TABS[ksize]]
     sigma = ksize * 0.15 + 0.35           # 0.3·((k−1)/2 − 1) + 0.8
     scale2 = -0.125 / (sigma * sigma)     # the taps sit at x = 2·offset
     half = (ksize - 1) // 2
@@ -108,14 +117,21 @@ def gaussian_kernel_fixed_point(ksize: int) -> List[int]:
     return taps
 
 
-def _reflect101(n: int, pad: int, device) -> torch.Tensor:
-    i = torch.arange(-pad, n + pad, device=device).abs()
-    return torch.where(i >= n, 2 * (n - 1) - i, i)
+def reflect101_index(n: int, before: int, after: int) -> np.ndarray:
+    """Source indices of ``before + n + after`` positions along an axis of
+    ``n`` under BORDER_REFLECT_101 (reflected as often as the pad needs,
+    as cv2's borderInterpolate does; every index 0 when ``n`` is 1)."""
+    i = np.arange(-before, n + after)
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.mod(i, period)
+    return np.where(i >= n, period - i, i)
 
 
 def gaussian_blur_uint8(images, ksize: int = 9, device=None) -> torch.Tensor:
     """``cv2.GaussianBlur(im, (ksize, ksize), 0)`` of each uint8 frame of
-    ``images`` [B, H, W, C] (H, W > ksize // 2), on ``device`` (the
+    ``images`` [B, H, W, C] (any odd ``ksize``), on ``device`` (the
     images' own unless given): uint8 [B, H, W, C]. Integer sums, so the
     result is cv2's bit for bit."""
     x = torch.as_tensor(images, device=device)
@@ -125,9 +141,8 @@ def gaussian_blur_uint8(images, ksize: int = 9, device=None) -> torch.Tensor:
     taps = gaussian_kernel_fixed_point(ksize)
     pad = ksize // 2
     h, w = x.shape[1], x.shape[2]
-    if min(h, w) <= pad:
-        raise ValueError(f"frames of {h}x{w} are too small for a {ksize}-tap reflection")
-    x = x.to(torch.int32)[:, _reflect101(h, pad, x.device)][:, :, _reflect101(w, pad, x.device)]
+    rows, cols = (torch.from_numpy(reflect101_index(n, pad, pad)).to(x.device) for n in (h, w))
+    x = x.to(torch.int32)[:, rows][:, :, cols]
     rows = sum(t * x[:, :, i:i + w] for i, t in enumerate(taps))          # < 2^16
     out = sum(t * rows[:, i:i + h] for i, t in enumerate(taps))           # < 2^24
     return ((out + (1 << 15)) >> 16).to(torch.uint8)
