@@ -137,7 +137,9 @@ exit code:
    input-wait share, the COCO callback's ms an evaluation (split into the
    serves, the driver build and the rest) and its AP in [0, 1], its
    launches asserted 1/1/15 (soft-NMS, fused depthwise on its fast path,
-   fused expand) a validation batch; one epoch with ``--device_resize``;
+   fused expand) a validation batch plus its NMS grid's 9/1/15 (a
+   post-processing a cell, one forward of the probe image); one epoch
+   with ``--device_resize``;
    ``cli eval --fine_grid`` (dropout off) from the checkpoint, its COCO
    numbers equal to the callback's on the same weights and val file
    within 1e-6 (at least one of them above 0), and ``inspect --mode
@@ -167,6 +169,23 @@ exit code:
    aug, flip])`` on one batch: 20 serves at 1/15/1 asserted, the variants'
    stream time on the card against the same variants made image by image
    on the host. It writes and removes ``build/chip_smoke_al/``.
+12. the apps' image artifacts and profiling at phase 9's KITTI inference
+   configuration (batch 8, bf16) on 48 native 375x1242 PNG frames written
+   as phase 10 writes them, read by the device-resize reader:
+   ``InferImages`` with auto-labeling over 4 batches without and with
+   ``save_visualizations`` (1/15/1 launches a serve asserted; every
+   overlay, uncertainty panel, bucket copy and contact sheet read back
+   with the port's decoder, its shape checked; ms a batch split into the
+   serve, drawing, PNG writing, the buckets' read-back and the rest of
+   the host, beside the run without artifacts); ``Validator`` over the
+   same batches and ``export_quadrant_crops`` over its rows;
+   ``plot_tfrecord_groundtruth`` over the 16 val frames; two serves under
+   ``utils.profiling.trace`` (the Chrome trace names the soft-NMS, fused
+   depthwise and expand kernels) and ``device_memory_stats``. It writes
+   and removes ``build/chip_smoke_artifacts/``; rehearse it on the CPU as
+   phase 11 (``phase12("cpu", "...", native=(60, 100),
+   extra=dict(image_size="64x64", fpn_cell_repeats=1, box_class_repeats=1,
+   mc_dropoutsamp=2))``, ~5 s).
    Then the script's total time.
 
 The line before the last is a JSON summary of the kernels: each with its
@@ -184,6 +203,7 @@ function where there is one. The last line is ``{"ok": true, "device":
 {...}}``.
 """
 
+import ast
 import hashlib
 import itertools
 import json
@@ -1162,8 +1182,8 @@ def app_run(what, clock, batches, fn):
     wall = time.perf_counter() - t0
     calls, serve = clock.calls - calls0, clock.seconds - serve0
     launches = counts()
-    if calls == 0 or launches != (calls, 15 * calls, calls) or \
-            fused_dw.path_launches["fast"] != calls:
+    if calls == 0 or launches != per_serve(calls) or \
+            fused_dw.path_launches["fast"] != per_serve(calls)[0]:
         raise AssertionError(f"{what}: (fused_dw, fused_expand_dw, soft_nms) launches "
                              f"{launches} in {calls} serves, want 1/15/1 a serve (fast path "
                              f"{fused_dw.path_launches['fast']})")
@@ -1211,6 +1231,13 @@ def phase9(dev, smi):
     loaded = calibration.load_calibrators(str(APPS_DIR / "calib"))
     if sorted(loaded[0]) != sorted(calibration.REGRESSION_CALIBRATORS) or len(loaded[1]) != 8:
         raise AssertionError(f"calibrators read back: {sorted(loaded[0])}, {sorted(loaded[1])}")
+    figures = {p.stem: json.loads(p.read_text()) for p in (APPS_DIR / "calib" / "plots").glob("*")}
+    if sorted(figures) != ["regression_reliability", "reliability_raw", "reliability_ts"]:
+        raise AssertionError(f"Calibrate's figures' numbers: {sorted(figures)}")
+    lines.append("Calibrate's figures: " + ", ".join(
+        f"{k} " + " ".join(f"{m}={v[m]:.4f}" for m in ("ECE", "MCE", "ACE", "miscal_area",
+                                                     "sharpness", "rmsue") if m in v)
+        for k, v in sorted(figures.items())))
 
     # the temperature fits, card vs CPU, on the gathered arrays
     res = np.abs(data["pred_boxes"] - data["gt_boxes"])
@@ -1295,11 +1322,16 @@ def phase9(dev, smi):
     lines.append(line)
     vparsed = read_validate_results(str(APPS_DIR / "val" / "validate_results.txt"))
     artifacts = [p.name for p in sorted((APPS_DIR / "val").iterdir())]
-    if len(vparsed) != len(vrows) or not vparsed or len(artifacts) != 4:
+    panels = {tag: ast.literal_eval((APPS_DIR / "val" / tag / "metrics.txt").read_text())
+              for tag in ("aleatoric", "mcdropout")
+              if (APPS_DIR / "val" / tag / "calibration.json").exists()}
+    if len(vparsed) != len(vrows) or not vparsed or len(artifacts) != 6 or len(panels) != 2 \
+            or not all(np.isfinite(list(m.values())).all() for m in panels.values()):
         raise AssertionError(f"Validator: {len(vparsed)} rows read back of {len(vrows)}, "
-                             f"artifacts {artifacts}")
+                             f"artifacts {artifacts}, calibration panels {panels}")
     lines.append(f"Validator: {len(vparsed)} rows, {artifacts}; "
-                 + (APPS_DIR / "val" / "model_performance.txt").read_text().replace("\n", " "))
+                 + (APPS_DIR / "val" / "model_performance.txt").read_text().replace("\n", " ")
+                 + f"; calibration panels {panels}")
 
     images = infer_data[0][0]
     blur = gaussian_blur_uint8(images, 9, dev)
@@ -1517,7 +1549,7 @@ def phase10(dev, smi, profiled=False, native=KITTI_NATIVE, extra=None):
     check_callback_launches(callbacks)
     cb_ms = [c[0] * 1e3 for c in callbacks]
     cb_split = ", ".join(f"{c[0] * 1e3:.0f} = serves {c[5] * 1e3:.0f} + driver build "
-                         f"{c[6] * 1e3:.0f} + reader and COCO matching "
+                         f"{c[6] * 1e3:.0f} + reader, COCO matching and the NMS grid "
                          f"{(c[0] - c[5] - c[6]) * 1e3:.0f}" for c in callbacks)
     wait = hist["input_wait"]
     phase(10, f"cli train ({path} via the port's YAML reader, map_freq 1, batch {BATCH}): "
@@ -1909,6 +1941,183 @@ def phase11(dev, smi, native=KITTI_NATIVE, extra=None):
     torch.cuda.empty_cache()
 
 
+# phase 12: the apps' image artifacts and profiling, on native KITTI frames
+ART_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_artifacts"
+ART_BATCHES, GT_FRAMES = 4, 16
+
+
+class Stopwatch:
+    """Host seconds spent in each wrapped function, by name."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+
+def phase12(dev, smi, native=KITTI_NATIVE, extra=None):
+    """The apps' image artifacts and profiling at KITTI's inference
+    configuration (phase 9's), batch 8, bf16, on native ``native`` frames
+    read by the device-resize reader (a KITTI layout written as phase 10
+    writes it): ``InferImages`` with auto-labeling over ART_BATCHES
+    batches without and with ``save_visualizations`` (1/15/1 launches a
+    serve; every overlay, panel and contact sheet read back with the
+    port's decoder and its shape checked; ms a batch split into the serve,
+    drawing, PNG writing, the buckets' read-back and the rest of the
+    host); ``Validator`` over the same batches and ``export_quadrant_crops``
+    over its rows; ``plot_tfrecord_groundtruth`` over the GT_FRAMES
+    frames of the val shard; ``profiling.trace`` around two serves (the
+    trace file names the soft-NMS, fused depthwise and expand kernels) and
+    ``device_memory_stats``. ``extra`` adds hparams (a CPU rehearsal's
+    small size). Writes and removes ``build/chip_smoke_artifacts/``."""
+    from udal_tpu_torch.apps import infer as infer_mod
+    from udal_tpu_torch.apps.reader_batches import serve_reader_batch
+    from udal_tpu_torch.apps.uncertainty_analysis import export_quadrant_crops
+    from udal_tpu_torch.data.plot_gt import plot_tfrecord_groundtruth
+    from udal_tpu_torch.utils import profiling
+
+    path, overrides = KITTI_HEAD
+    shutil.rmtree(ART_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    train, val, write_s = write_kitti_layout(ART_DIR / "kitti", ART_BATCHES * BATCH + GT_FRAMES,
+                                             native, seed=41)
+    server = ServingDriver.create("efficientdet-d0", overrides={**overrides, **(extra or {})},
+                                  batch_size=BATCH, seed=0, device=dev)
+    cfg = server.config
+    h, w = parse_image_size(cfg.image_size)
+    it = InputReader(train, False, names=True, fast_input=True, device_resize=True)(cfg, BATCH)
+    batches = [next(it) for _ in range(ART_BATCHES)]
+    it.close()
+    frames = {n: im for images, labels in batches
+              for n, im in zip(labels["image_names"], images)}
+    if any(im.shape != (*native, 3) for im in frames.values()) or len(frames) != ART_BATCHES * BATCH:
+        raise AssertionError(f"device-resize reader: {len(frames)} frames of "
+                             f"{ {im.shape for im in frames.values()} }, want {native}")
+    serve_reader_batch(server, *batches[0])         # a first serve at these shapes, untimed
+    sync(dev)
+    clock = ServeClock(server)
+    lines = []
+
+    def measured(what, fn):
+        """fn() through app_run, and the seconds of its wall and serves."""
+        serve0, t0 = clock.seconds, time.perf_counter()
+        out, line = app_run(what, clock, ART_BATCHES, fn)
+        return out, line, time.perf_counter() - t0, clock.seconds - serve0
+
+    params = [0.5, 0.5]
+    plain = InferImages(server, str(ART_DIR / "plain"), auto_labeling=True, opt_params=params)
+    _, line, plain_s, plain_serve = measured("InferImages", lambda: plain.run(batches))
+    lines.append(line)
+
+    watch = Stopwatch()
+    real = {n: getattr(infer_mod, n) for n in ("overlay_panels", "contact_sheet", "write_png",
+                                               "decode_image")}
+    for n, fn in real.items():
+        setattr(infer_mod, n, watch.wrap(n, fn))
+    try:
+        vis = InferImages(server, str(ART_DIR / "vis"), auto_labeling=True, opt_params=params,
+                          save_visualizations=True)
+        rows, line, vis_s, vis_serve = measured("InferImages(save_visualizations=True)",
+                                                lambda: vis.run(batches))
+    finally:
+        for n, fn in real.items():
+            setattr(infer_mod, n, fn)
+    lines.append(line)
+    drawn = sorted((ART_DIR / "vis" / "visualizations").glob("*.png"))
+    sheets = sorted((ART_DIR / "vis" / "uncert").rglob("contact_sheet.png"))
+    copies = [p for p in (ART_DIR / "vis" / "uncert").rglob("*.png") if p not in sheets]
+    images_with_rows = {r["image_name"] for r in rows}
+    t0 = time.perf_counter()
+    for p in drawn + copies:
+        if decode_image(p.read_bytes()).shape != (*native, 3):
+            raise AssertionError(f"{p.name}: not a {native} RGB overlay")
+    for p in sheets:
+        n = len([q for q in p.parent.glob("*.png") if q != p])
+        cols = min(5, n)
+        want = (-(-n // cols) * 180, cols * 320, 3)
+        if decode_image(p.read_bytes()).shape != want:
+            raise AssertionError(f"{p.relative_to(ART_DIR)}: shape, want {want} for {n} images")
+    read_s = time.perf_counter() - t0
+    if len(drawn) != 5 * len(images_with_rows) or not drawn or len(sheets) != 8 or not copies:
+        raise AssertionError(f"InferImages(save_visualizations=True): {len(drawn)} overlays and "
+                             f"panels for {len(images_with_rows)} images with detections (want "
+                             f"5 each), {len(sheets)} contact sheets (want 8), {len(copies)} "
+                             f"bucket copies")
+    draw_s = watch.seconds.get("overlay_panels", 0.0) + watch.seconds.get("contact_sheet", 0.0)
+    png_s = watch.seconds.get("write_png", 0.0)
+    back_s = watch.seconds.get("decode_image", 0.0)
+    per = 1e3 / ART_BATCHES
+    lines.append(
+        f"artifacts: {len(drawn)} overlay/panel PNGs of {native[0]}x{native[1]}, {len(copies)} "
+        f"bucket copies, {len(sheets)} contact sheets, all read back with the port's decoder "
+        f"({read_s:.2f} s); ms a batch of {BATCH}: {vis_s * per:.1f} with the artifacts = serve "
+        f"{vis_serve * per:.1f} + drawing {draw_s * per:.1f} + PNG writing {png_s * per:.1f} + "
+        f"buckets' read-back {back_s * per:.1f} + other host "
+        f"{(vis_s - vis_serve - draw_s - png_s - back_s) * per:.1f}; without them "
+        f"{plain_s * per:.1f} = serve {plain_serve * per:.1f} + host "
+        f"{(plain_s - plain_serve) * per:.1f}; {smi}")
+
+    validator = Validator(server, str(ART_DIR / "val"))
+    vrows, line, _, _ = measured("Validator", lambda: validator.run(batches))
+    lines.append(line)
+    t0 = time.perf_counter()
+    res = export_quadrant_crops(vrows, frames.get, str(ART_DIR / "crops"))
+    crops_s = time.perf_counter() - t0
+    n_crops = sum(res["crop_counts"].values())
+    crop_files = sorted((ART_DIR / "crops").rglob("*.png"))
+    if n_crops == 0 or len(crop_files) != n_crops or \
+            any(decode_image(p.read_bytes()).ndim != 3 for p in crop_files):
+        raise AssertionError(f"export_quadrant_crops: {n_crops} crops counted, "
+                             f"{len(crop_files)} files")
+    t0 = time.perf_counter()
+    n_gt = plot_tfrecord_groundtruth(val, str(ART_DIR / "gt"), get_label_map("kitti"), GT_FRAMES)
+    gt_s = time.perf_counter() - t0
+    gt_files = sorted((ART_DIR / "gt").glob("*.png"))
+    if n_gt != GT_FRAMES or len(gt_files) != GT_FRAMES or \
+            any(decode_image(p.read_bytes()).shape != (*native, 3) for p in gt_files):
+        raise AssertionError(f"plot_tfrecord_groundtruth: {n_gt} frames, {len(gt_files)} files")
+    lines.append(f"export_quadrant_crops over {len(vrows)} Validator rows: {n_crops} crops in "
+                 f"{crops_s * 1e3:.1f} ms, quality-epistemic correlation "
+                 f"{res['quality_epistemic_corr']:.4f}; plot_tfrecord_groundtruth: {n_gt} "
+                 f"frames in {gt_s * 1e3:.1f} ms ({gt_s / n_gt * 1e3:.1f} ms a frame)")
+
+    images, labels = batches[0]
+    reset_counts()
+    with profiling.trace(str(ART_DIR / "trace")):
+        for _ in range(2):
+            serve_reader_batch(server, images, labels)
+        sync(dev)
+    launches = counts()
+    traces = sorted((ART_DIR / "trace").glob("trace_*.json"))
+    if len(traces) != 1 or launches != per_serve(2):
+        raise AssertionError(f"profiling.trace: {len(traces)} trace files, launches {launches}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: sum(k in name for name in kernels) for k in ("soft_nms", "fused_dw", "expand_dw")}
+    if torch.device(dev).type == "cuda" and not all(found.values()):
+        raise AssertionError(f"profiling.trace: kernels named {found} in {len(kernels)} kernel "
+                             f"names")
+    lines.append(f"profiling.trace of 2 serves: {traces[0].stat().st_size / 1e6:.2f} MB, "
+                 f"{len(events)} events, {len(kernels)} kernel names, of them {found}; "
+                 f"device_memory_stats {profiling.device_memory_stats()}")
+    for line in lines:
+        phase(12, line)
+    phase(12, f"KITTI ({path}) d0 {h}x{w}, head-only MC T={cfg.mc_dropoutsamp}, bf16, batch "
+              f"{BATCH}, native {native[0]}x{native[1]} frames (layout written in "
+              f"{write_s:.1f} s); phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    del server
+    shutil.rmtree(ART_DIR, ignore_errors=True)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def random_state_dict(cfg):
     """Random weights of ``cfg``'s model, drawn as flax's initializers draw
     them from seed 0."""
@@ -1924,12 +2133,14 @@ def sync(dev):
 
 def check_callback_launches(calls):
     """Each COCO callback call launched (fused_dw, fused_expand_dw,
-    soft_nms) 1/15/1 times a validation batch, the depthwise on its fast
-    path."""
+    soft_nms) 1/15/1 times a validation batch, plus the NMS grid's one
+    forward of its probe image (1/15/0) and its 9 post-processings
+    (0/0/9), the depthwise on its fast path every time."""
     for seconds, launches, fast, batches, *_ in calls:
-        if launches != (batches, 15 * batches, batches) or fast != batches:
+        want = (batches + 1, 15 * (batches + 1), batches + 9)
+        if launches != want or fast != batches + 1:
             raise AssertionError(f"COCO callback: launches {launches} (fast path {fast}) over "
-                                 f"{batches} validation batches, want 1/15/1 a batch")
+                                 f"{batches} validation batches and the NMS grid, want {want}")
 
 
 def check_serve_launches(what, launches, batches):
@@ -2081,6 +2292,11 @@ def main():
     t0 = time.perf_counter()
     phase11(dev, smi)
     phase(11, f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the apps' image artifacts and profiling, on native frames ----------
+    t0 = time.perf_counter()
+    phase12(dev, smi)
+    phase(12, f"done in {time.perf_counter() - t0:.1f} s")
 
     kernel_ms, plain_ms = times["gaussian"]
     # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per

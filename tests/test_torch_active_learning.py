@@ -269,3 +269,98 @@ def test_cli_al_scores_the_pool_through_the_driver(pool_file, tmp_path):
     assert os.path.exists(tmp_path / "w" / "iter_1" / "remaining.tfrecord")
     remaining = al_runner.PoolIndex(str(tmp_path / "w" / "iter_1" / "remaining.tfrecord")).names
     assert remaining[-1] == "__pad0__" and len(remaining) == 8
+
+
+# -- a resumed `cli al` serves the model the previous iteration left ------------
+
+RESUME_ARGV = ["--strategy", "entropy", "--budgets", "30,20", "--batch_size", "2",
+               "--num_epochs", "1", "--steps_per_epoch", "1", "--device", "cpu", "--seed", "3",
+               "--hparams", "image_size=64x64,num_classes=3,fpn_cell_repeats=1,box_class_repeats=1"]
+
+
+@pytest.fixture(scope="module")
+def finished_al(pool_file):
+    """One uninterrupted two-iteration ``cli al --strategy entropy`` run:
+    (its work directory, its selection)."""
+    root, path = pool_file
+    work = root / "al_finished"
+    return work, cli.main(["al", "--pool_file_pattern", path, "--work_dir", str(work),
+                           *RESUME_ARGV])
+
+
+@pytest.mark.parametrize("how", ["killed", "warmup"])
+def test_resumed_cli_al_serves_the_previous_iterations_model(pool_file, finished_al, tmp_path,
+                                                              monkeypatch, how):
+    """A run that never trains iteration 0 itself (resumed after iteration
+    1 was killed before its training finished, or with ``--warmup_dir``
+    copying iteration 0's model) serves iteration 1's pool from
+    ``iter_0/model``: ``collect_pool``'s pool equals one served from
+    ``checkpoint_state_dict(cfg, iter_0/model)`` array for array, and the
+    selection equals the uninterrupted run's. (JAX's runner serves from
+    ``last_model_dir[0]``, which only its training sets, and raises here.)"""
+    import shutil
+
+    from udal_tpu_torch.apps.serving import checkpoint_state_dict
+    from udal_tpu_torch.config import config_from_args
+    from udal_tpu_torch.data.dataloader import InputReader
+
+    _, path = pool_file
+    finished, want = finished_al
+    work = tmp_path / "work"
+    extra = []
+    if how == "killed":
+        shutil.copytree(finished, work)
+        shutil.rmtree(work / "iter_1" / "model")
+        os.remove(work / "iter_1" / "train_done")
+    else:
+        extra = ["--warmup_dir", str(finished / "iter_0")]
+    pools = []
+    real = als.collect_pool
+
+    def recording(drv, batches, **kw):
+        pools.append(real(drv, batches, **kw))
+        return pools[-1]
+
+    monkeypatch.setattr(als, "collect_pool", recording)
+    argv = ["al", "--pool_file_pattern", path, "--work_dir", str(work), *RESUME_ARGV, *extra]
+    got = cli.main(argv)
+    assert got == want and len(pools) == 1
+    assert os.path.exists(work / "iter_0" / "model") and os.path.exists(work / "iter_1" / "model")
+
+    cfg = config_from_args(cli.build_parser().parse_args(argv))
+    cfg.is_training_bn = False
+    drv = ServingDriver(cfg, checkpoint_state_dict(cfg, str(work / "iter_0" / "model")),
+                        batch_size=2, device="cpu")
+    it = InputReader(str(work / "iter_1" / "remaining.tfrecord"), is_training=False, names=True,
+                     seed=3)(drv.config, 2)
+    try:
+        ref = real(drv, ((im, lab["image_names"], lab["image_scales"]) for im, lab in it),
+                   min_score=0.0)
+    finally:
+        it.close()
+    pool = pools[0]
+    assert pool.names == ref.names and pool.n_images == ref.n_images > 0
+    for key in ("boxes", "classes", "mask"):
+        np.testing.assert_array_equal(getattr(pool, key), getattr(ref, key))
+    assert pool.feats.keys() == ref.feats.keys()
+    for key in pool.feats:
+        np.testing.assert_array_equal(pool.feats[key], ref.feats[key])
+
+
+def test_selections_over_a_large_pool_equal_jax(tmp_path):
+    """The loop's remaining list and row filter (one set each, built once)
+    over 400 names and five budget steps: the same selections as JAX's,
+    name for name, through the row route."""
+    names = [f"img{i:03d}.png" for i in range(400)]
+    rows = rows_of(n_images=400, seed=11)
+
+    def infer_fn(remaining, it_dir):
+        keep = set(remaining)
+        return [r for r in rows if r["image_name"] in keep]
+
+    out = {}
+    for side, mod in (("port", al), ("jax", jax_al)):
+        out[side] = mod.ActiveLearning(names, str(tmp_path / side), "mean_entropy",
+                                       budget_steps=[5, 10, 10, 20, 15], infer_fn=infer_fn,
+                                       seed=7).run()
+    assert out["port"] == out["jax"] and len(set(out["port"])) == len(out["port"]) == 240

@@ -103,6 +103,22 @@ def test_cli_train_writes_checkpoints_config_and_an_ap(trained):
     assert len(json.load(open(os.path.join(logs, "panels", "ap_vs_iou_epoch1.json")))) == 19
 
 
+def test_cli_train_writes_the_nms_grid_panel(trained):
+    """Each evaluation's grid of detections over 3 x 3 (NMS IoU, score)
+    thresholds on the first validation image, at the network's size."""
+    from udal_tpu_torch.config import parse_image_size
+    from udal_tpu_torch.data.image_codec import decode_image
+
+    model_dir, _ = trained
+    h, w = parse_image_size(get_detection_config("efficientdet-d0").override(HPARAMS).image_size)
+    for epoch in (1, 2):
+        path = os.path.join(model_dir, "logs", "panels", f"nms_grid_epoch{epoch}.png")
+        grid = decode_image(open(path, "rb").read())
+        assert grid.shape == (3 * h, 3 * w, 3)
+        cells = grid.reshape(3, h, 3, w, 3).transpose(0, 2, 1, 3, 4).reshape(9, h, w, 3)
+        assert all(c.std() > 0 for c in cells)
+
+
 def test_inspect_validate_and_calibrate_from_the_checkpoint(trained, records, tmp_path):
     model_dir, _ = trained
     common = ["--model_dir", model_dir, "--val_file_pattern", records[1], "--batch_size", "2",
@@ -113,6 +129,32 @@ def test_inspect_validate_and_calibrate_from_the_checkpoint(trained, records, tm
     cli.main(["inspect", "--mode", "calibrate", "--output_dir", str(tmp_path / "c"),
               "--fast_input", *common])
     assert os.listdir(tmp_path / "c")
+
+
+@pytest.mark.parametrize("reader", [[], ["--fast_input"], ["--fast_input", "--device_resize"]],
+                         ids=["classic", "fast", "device_resize"])
+def test_inspect_auto_label_saves_visualizations(trained, records, tmp_path, reader):
+    """``inspect --mode auto-label --save_visualizations`` in each reader
+    contract: three PNGs (the overlay, the aleatoric box σ and the entropy
+    panels; the model has no MC dropout) for each image with detections,
+    at the size of the pixels the batch carries (the network's, or the
+    frame's with the device resize)."""
+    from udal_tpu_torch.config import parse_image_size
+
+    model_dir, _ = trained
+    out = tmp_path / "auto"
+    rows = cli.main(["inspect", "--mode", "auto-label", "--save_visualizations", "--output_dir",
+                     str(out), "--model_dir", model_dir, "--val_file_pattern", records[1],
+                     "--batch_size", "2", "--hparams", HPARAMS + ",enable_softmax=True",
+                     "--device", "cpu", *reader])
+    names = {os.path.splitext(r["image_name"])[0] for r in rows}
+    pngs = sorted(p.name for p in (out / "visualizations").glob("*.png"))
+    assert names and pngs == sorted(n + s + ".png" for n in names
+                                    for s in ("", "_mean_albox", "_entropy"))
+    h, w = (48, 80) if "--device_resize" in reader else parse_image_size(
+        get_detection_config("efficientdet-d0").override(HPARAMS).image_size)
+    shape = decode_image((out / "visualizations" / pngs[0]).read_bytes()).shape
+    assert shape == (h, w, 3)
 
 
 def _record_updates(monkeypatch, evaluator_cls):

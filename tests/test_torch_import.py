@@ -132,6 +132,31 @@ def test_augmentation_active_and_semi_supervised_learning_import_nothing_the_car
     assert [m for m in out if _forbidden(m) or m.startswith("tensorflow")] == []
 
 
+def test_image_artifacts_and_profiling_import_nothing_the_card_lacks():
+    """The drawing (``cv_ops``' rectangle and text size, ``visualize``), the
+    figures' numbers, the GT plots, profiling and the apps that write
+    their artifacts load with none of JAX, flax, yaml, the JAX package,
+    sklearn, cv2, PIL or matplotlib."""
+    code = ("import sys, udal_tpu_torch.utils.visualize as vis, "
+            "udal_tpu_torch.utils.uncert_plots as up, udal_tpu_torch.utils.profiling as prof, "
+            "udal_tpu_torch.data.plot_gt as pg, udal_tpu_torch.ops.text_metrics, "
+            "udal_tpu_torch.apps.infer as i, udal_tpu_torch.apps.uncertainty_analysis as ua, "
+            "udal_tpu_torch.train.callbacks as cb; "
+            "from udal_tpu_torch.ops.cv_ops import rectangle, get_text_size, gaussian_blur_f64; "
+            "[vis.visualize_boxes_and_labels, vis.overlay_panels, vis.contact_sheet, "
+            "vis.draw_detection_grid, up.reliability_diagram, up.brisque_like_score, "
+            "up.top10_panel, prof.trace, prof.device_memory_stats, pg.plot_tfrecord_groundtruth, "
+            "i.InferImages._save_overlay, ua.export_quadrant_crops, cb.COCOCallback.nms_grid]; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    for module in ("torch", "udal_tpu_torch.utils.visualize",
+                   "udal_tpu_torch.utils.uncert_plots", "udal_tpu_torch.utils.profiling",
+                   "udal_tpu_torch.data.plot_gt", "udal_tpu_torch.ops.text_metrics"):
+        assert module in out
+    assert [m for m in out if _forbidden(m) or m.startswith("tensorflow")] == []
+
+
 def test_packed_microbench_imports_no_jax_or_the_jax_script():
     """The port's packed-layout tool runs on the machine with the card."""
     code = ("import sys, udal_tpu_torch.tools.perf_packed, udal_tpu_torch.ops.packed; "

@@ -18,9 +18,16 @@ A stub driver that hands both packages the same packed detections with MC
 columns (box and class σ) covers the paths the deterministic serve does
 not reach: the calibrated MC box σ, the sampled class calibration and the
 ``unc_*`` calibrators, with ``Calibrate.run``'s fits held as
-``test_torch_calibration.py`` holds them.
+``test_torch_calibration.py`` holds them. On the same detections, the
+image artifacts too: ``InferImages(save_visualizations=True)``'s overlay
+and panel PNGs (every batch contract) and its buckets' contact sheets,
+equal to the JAX package's outside the labels' text
+(``test_torch_visualize.py`` says why), the Validator's ``metrics.txt``
+files and the reliability numbers of ``Calibrate``.
 """
 
+import hashlib
+import json
 import os
 import pickle
 
@@ -38,11 +45,13 @@ import udal_tpu.apps.serving as jax_serving  # noqa: E402
 import udal_tpu.apps.validate as jax_validate  # noqa: E402
 from tests.test_torch_calibration import assert_calibrators_equal  # noqa: E402
 from tests.test_torch_fixtures import configs, random_variables  # noqa: E402
+from tests.test_torch_visualize import assert_equal_outside, jax_drawings  # noqa: E402,F401
 from udal_tpu_torch.apps import calibrate_model, calibration, infer, validate  # noqa: E402
 from udal_tpu_torch.apps.serving import ServingDriver  # noqa: E402
 from udal_tpu_torch.convert import calibrators_from_jax, flax_to_torch  # noqa: E402
 from udal_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8  # noqa: E402
+from udal_tpu.utils.visualize import contact_sheet as jax_contact_sheet  # noqa: E402
 
 B = 2
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -300,9 +309,10 @@ def test_gaussian_blur_equals_cv2(shape, ksize):
 
 
 def test_image_artifacts_name_what_is_missing(apps):
-    with pytest.raises(NotImplementedError, match="codec"):
-        infer.InferImages(apps["port"], str(apps["root"] / "x"), save_visualizations=True)
-    with pytest.raises(ValueError):
+    """The Validator names an inference-time augmentation it does not
+    know. (``InferImages(save_visualizations=True)`` no longer refuses:
+    its artifacts are held below.)"""
+    with pytest.raises(ValueError, match="nope"):
         validate.Validator(apps["port"], str(apps["root"] / "x"), infer_augment=["nope"])
 
 
@@ -400,3 +410,124 @@ def test_infer_and_validate_match_jax_with_mc_sigma(stubs, tmp_path):
         assert (buckets / kind / "images.txt").read_text() == (
             tmp_path / "InferImages_jax" / "uncert" / "upper_uncert" / kind /
             "images.txt").read_text()
+
+
+# -- the image artifacts and the figures' numbers, on the same detections ---------
+
+def contract_batches(batches, config, contract):
+    """The reader batches in another contract: native uint8 with warp
+    parameters, normalised (images, names, scales), raw (images, names)."""
+    if contract == "reader":
+        return batches
+    out = []
+    for images, labels in batches:
+        names = labels["image_names"]
+        scales = np.asarray([1.0, 1.5], np.float32)
+        if contract == "native":
+            out.append((images, dict(labels, warp_scale=np.ones((B, 2), np.float32),
+                                     warp_offset=np.zeros((B, 2), np.float32),
+                                     image_scales=scales)))
+        elif contract == "preprocessed":
+            out.append((classic([(images, labels)], config)[0][0], names, scales))
+        else:
+            out.append((images, names))
+    return out
+
+
+@pytest.mark.parametrize("contract", ["reader", "native", "preprocessed", "raw"])
+def test_infer_images_visualizations_match_jax(stubs, tmp_path, jax_drawings, contract):
+    """The same detections to both drivers: the same PNG files under
+    visualizations/ and in the buckets; the overlays' and panels' decoded
+    pixels equal the JAX package's outside its text; each bucket's
+    contact sheet is cv2's tiling of the bucket's overlays, in the
+    bucket's order (the JAX package's ``contact_sheet`` without captions),
+    bit for bit."""
+    from PIL import Image
+
+    from udal_tpu_torch.data.image_codec import decode_image
+
+    saves = {}
+    for name, mod, cfg, as_torch in (("jax", jax_infer, stubs["jax_cfg"], False),
+                                     ("port", infer, stubs["torch_cfg"], True)):
+        save = tmp_path / name
+        app = mod.InferImages(StubDriver(cfg, stubs["pool_packed"], as_torch), str(save),
+                              save_visualizations=True, bucket_fraction=0.5)
+        app.run(contract_batches(stubs["pool"], stubs["torch_cfg"], contract))
+        saves[name] = save
+    masks = {hashlib.sha1(img.tobytes()).hexdigest(): m for img, m in jax_drawings}
+    files = {name: sorted(str(p.relative_to(save)) for p in save.rglob("*.png"))
+             for name, save in saves.items()}
+    assert files["port"] == files["jax"]
+    sheets = [f for f in files["port"] if f.endswith("contact_sheet.png")]
+    assert len(sheets) == 8
+    assert len([f for f in files["port"] if f.startswith("visualizations")]) == \
+        5 * len(stubs["pool"]) * B
+    for f in files["port"]:
+        got = decode_image((saves["port"] / f).read_bytes())
+        want = np.asarray(Image.open(saves["jax"] / f))
+        if f in sheets:
+            bucket = (saves["port"] / f).parent
+            stems = [os.path.splitext(line.split()[0])[0]
+                     for line in (bucket / "images.txt").read_text().splitlines()]
+            thumbs = [decode_image((bucket / (s + ".png")).read_bytes()) for s in stems]
+            np.testing.assert_array_equal(got, jax_contact_sheet(thumbs))
+            assert got.shape == want.shape
+        else:
+            assert_equal_outside(got, want, masks[hashlib.sha1(want.tobytes()).hexdigest()])
+
+
+def test_validator_calibration_panels_match_jax(stubs, tmp_path):
+    """``aleatoric/`` and ``mcdropout/``: equal ``metrics.txt`` (the
+    ``repr`` of the same three numbers) and the figure's numbers in
+    ``calibration.json``, on the same detections."""
+    out = {}
+    for name, mod, cfg, as_torch in (("jax", jax_validate, stubs["jax_cfg"], False),
+                                     ("port", validate, stubs["torch_cfg"], True)):
+        mod.Validator(StubDriver(cfg, stubs["pool_packed"], as_torch),
+                      str(tmp_path / name)).run(stubs["pool"])
+        out[name] = tmp_path / name
+    for tag in ("aleatoric", "mcdropout"):
+        metrics = (out["port"] / tag / "metrics.txt").read_text()
+        assert metrics == (out["jax"] / tag / "metrics.txt").read_text()
+        assert (out["jax"] / tag / "calibration.png").exists()
+        panel = json.loads((out["port"] / tag / "calibration.json").read_text())
+        numbers = eval(metrics)
+        assert {k: panel[k] for k in numbers} == numbers and panel["title"] == tag
+        assert len(panel["expected"]) == len(panel["observed"]) == 100
+
+
+def test_calibrate_reliability_numbers_match_jax(stubs, tmp_path, monkeypatch):
+    """ECE / MCE / ACE of the raw softmax and the aleatoric σ's
+    miscalibration area, sharpness and RMSUE, to 1e-9 of what the JAX
+    package computes for its figures; those of the temperature-scaled
+    softmax to 1e-9 of the JAX package's function at the port's own
+    temperature (the two fits agree only as ``test_torch_calibration.py``
+    holds them)."""
+    import udal_tpu.utils.uncert_plots as jax_plots
+
+    seen = {}
+    real_reliability = jax_plots.reliability_diagram
+    for fn in ("reliability_diagram", "regression_calibration_plot"):
+        real = getattr(jax_plots, fn)
+
+        def recording(*args, _real=real, **kwargs):
+            seen[os.path.basename(args[2])] = _real(*args, **kwargs)
+            return seen[os.path.basename(args[2])]
+
+        monkeypatch.setattr(jax_plots, fn, recording)
+    app = calibrate_model.Calibrate(StubDriver(stubs["torch_cfg"], stubs["calib_packed"], True),
+                                    str(tmp_path / "port"))
+    _, classification = app.run(stubs["calib"])
+    jax_calibrate.Calibrate(StubDriver(stubs["jax_cfg"], stubs["calib_packed"], False),
+                            str(tmp_path / "jax")).run(stubs["calib"])
+    assert sorted(seen) == ["regression_reliability.png", "reliability_raw.png",
+                            "reliability_ts.png"]
+    data = app.gather_detections(stubs["calib"])
+    probs = calibration.stable_softmax(data["logits"] / np.asarray(classification["ts_all"]))
+    seen["reliability_ts.png"] = real_reliability(
+        (probs.argmax(-1) + 1 == data["gt_classes"]).astype(float), probs.max(-1),
+        str(tmp_path / "ts.png"))
+    for png, want in seen.items():
+        got = json.loads((tmp_path / "port" / "plots" / png.replace(".png", ".json")).read_text())
+        for k, v in want.items():
+            assert got[k] == pytest.approx(v, rel=1e-9, abs=1e-12), (png, k)

@@ -164,6 +164,15 @@ def test_label_maps_match_jax(tmp_path):
         label_maps.get_label_map(str(path))
 
 
+@pytest.mark.parametrize("path", ["models/KITTI_test", "/data/BDD100K/val", "runs/CODA_x",
+                                  "somewhere/else"])
+@pytest.mark.parametrize("im_name", [None, "000042.png"])
+def test_dataset_data_matches_jax(path, im_name):
+    assert label_maps.get_dataset_data(path, im_name) == jax_maps.get_dataset_data(path, im_name)
+    for val in (False, True):
+        assert label_maps.available_datasets(val) == jax_maps.available_datasets(val)
+
+
 def test_get_ocl_trc_matches_jax(tmp_path):
     root = tmp_path / "KITTI"
     (root / "training" / "label_2").mkdir(parents=True)
@@ -190,7 +199,8 @@ def validate_rows(seed=3, n=80):
 
 def test_main_uncert_analysis_matches_jax(tmp_path):
     """The weights, the metric table, thr_metrics and top-10 files equal
-    the JAX package's (which also draws plots; the port does not)."""
+    the JAX package's (its plots, drawn by matplotlib, are under plots/;
+    the port writes their numbers there, held by the next test)."""
     path = tmp_path / "validate_results.txt"
     path.write_text("".join(repr(r) + "\n" for r in validate_rows()))
     got = ua.MainUncertAnalysis(str(path), str(tmp_path / "port"), "ENTALBOXMCBOX").run(60)
@@ -216,6 +226,62 @@ def test_select_uncertainties_and_epistemic_vs_aleatoric_match_jax():
         assert str(g["cells"]) == str(w["cells"])
 
 
-def test_quadrant_crops_name_the_missing_codec():
-    with pytest.raises(NotImplementedError, match="codec"):
-        ua.export_quadrant_crops(validate_rows(), lambda name: None, "out")
+def test_analysis_panels_numbers_match_jax(tmp_path, monkeypatch):
+    """The FD@CD matrix (method x IoU threshold) the port writes to
+    ``plots/fdcd_heatmap.json`` and the spider plot's normalised axes in
+    ``plots/spider.json`` equal what the JAX package hands its matplotlib
+    figures, to 1e-9."""
+    import json
+
+    import udal_tpu.utils.uncert_plots as jax_plots
+
+    seen = {}
+    monkeypatch.setattr(jax_plots, "metric_heatmap",
+                        lambda m, xl, yl, path, title="": seen.update(heatmap=(m, xl, yl)))
+    monkeypatch.setattr(jax_plots, "spider_plot",
+                        lambda table, path, title="": seen.update(spider=table))
+    path = tmp_path / "validate_results.txt"
+    path.write_text("".join(repr(r) + "\n" for r in validate_rows(5)))
+    ua.MainUncertAnalysis(str(path), str(tmp_path / "port"), "ENTALBOXMCBOX").run(40)
+    jax_ua.MainUncertAnalysis(str(path), str(tmp_path / "jax"), "ENTALBOXMCBOX").run(40)
+    heat = json.loads((tmp_path / "port" / "plots" / "fdcd_heatmap.json").read_text())
+    matrix, xlabels, ylabels = seen["heatmap"]
+    np.testing.assert_allclose(heat["matrix"], matrix, rtol=1e-9, atol=1e-9)
+    assert heat["xlabels"] == xlabels and heat["ylabels"] == ylabels == \
+        ["ENT", "ALBOX", "MCBOX", "COMBO"]
+    spider = json.loads((tmp_path / "port" / "plots" / "spider.json").read_text())
+    table = seen["spider"]
+    assert spider["axes"] == sorted({k for m in table.values() for k in m})
+    for method, vals in spider["methods"].items():
+        for axis, v in zip(spider["axes"], vals):
+            col = [table[m].get(axis, 0.0) for m in table]
+            lo, hi = min(col), max(col)
+            want = 0.5 if hi <= lo else (table[method].get(axis, 0.0) - lo) / (hi - lo)
+            assert v == pytest.approx(want, rel=1e-9, abs=1e-12)
+
+
+def test_quadrant_crops_name_the_missing_codec(tmp_path):
+    """``export_quadrant_crops``, which raised for want of a PNG encoder,
+    equals the JAX package's: the grid, the crop counts, the quality
+    correlation (1e-9) and each crop's PNG pixels (the port's encoder,
+    PIL's in the JAX package), with some images missing."""
+    from PIL import Image
+
+    from udal_tpu_torch.data.image_codec import decode_image
+
+    rows = validate_rows(6, 60)
+    rng = np.random.RandomState(6)
+    images = {r["image_name"]: rng.randint(0, 256, (160, 160, 3)).astype(np.uint8)
+              for r in rows[::2]}
+    loader = images.get
+    got = ua.export_quadrant_crops(rows, loader, str(tmp_path / "port"), per_cell=3)
+    want = jax_ua.export_quadrant_crops(rows, loader, str(tmp_path / "jax"), per_cell=3)
+    assert got["crop_counts"] == want["crop_counts"] and sum(got["crop_counts"].values()) >= 5
+    np.testing.assert_allclose(got["quality_epistemic_corr"], want["quality_epistemic_corr"],
+                               rtol=1e-9)
+    assert str(got["cells"]) == str(want["cells"]) and got["correlation"] == want["correlation"]
+    for (i, j), n in want["crop_counts"].items():
+        for k in range(n):
+            name = os.path.join(f"cell_{i}_{j}", f"crop_{k}.png")
+            port = decode_image((tmp_path / "port" / name).read_bytes())
+            np.testing.assert_array_equal(port, np.asarray(Image.open(tmp_path / "jax" / name)))

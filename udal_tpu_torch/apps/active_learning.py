@@ -417,7 +417,8 @@ class ActiveLearning:
             pool = als.subset_pool(rows, remaining)
             return als.select_pool(pool, self.strategy, k,
                                    self.opt_params, self.rng)
-        rows = [r for r in rows if r["image_name"] in set(remaining)]
+        keep = set(remaining)
+        rows = [r for r in rows if r["image_name"] in keep]
         return select_images(rows, self.strategy, k,
                              self.opt_params, self.rng)
 
@@ -431,7 +432,8 @@ class ActiveLearning:
                     self.selected = [l for l in f.read().splitlines() if l]
                 continue
             k = max(1, int(round(total * pct / 100.0)))
-            remaining = [n for n in self.pool if n not in set(self.selected)]
+            chosen = set(self.selected)
+            remaining = [n for n in self.pool if n not in chosen]
             if not remaining:
                 break
             if i == 0 or self.strategy.startswith("random") \

@@ -8,19 +8,24 @@ groundtruth box its best prediction by IoU or MSE, keep the pairs with IoU
 fits on the driver's device) and save them with
 ``calibration.save_calibrators`` (``.npz`` files under
 ``<out_dir>/{regression,classification}/``). The JAX package's reliability
-and regression plots need matplotlib and are not drawn.
+diagrams (raw softmax and temperature-scaled) and the aleatoric σ's
+regression calibration plot are written as their numbers:
+``plots/reliability_raw.json``, ``plots/reliability_ts.json`` and
+``plots/regression_reliability.json`` (``utils.uncert_plots``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
 from udal_tpu_torch.apps.calibration import (ClassificationCalib, RegressionCalib,
-                                             gt_box_assigner, save_calibrators)
+                                             gt_box_assigner, save_calibrators, stable_softmax)
 from udal_tpu_torch.apps.infer import split_serve_outputs
 from udal_tpu_torch.apps.reader_batches import groundtruth_from_labels, serve_reader_batch
+from udal_tpu_torch.utils.uncert_plots import regression_calibration_plot, reliability_diagram
 
 
 class Calibrate:
@@ -93,5 +98,37 @@ class Calibrate:
                 classification = ClassificationCalib(data["gt_classes"], data["logits"],
                                                      sigma_cls, num_classes,
                                                      device=device).fit_all()
+                self.reliability_diagrams(data, classification)
+            if data["sigma_al"].size:
+                self.regression_plots(data)
         save_calibrators(self.out_dir, regression, classification)
         return regression, classification
+
+    def reliability_diagrams(self, data, classification) -> Dict[str, Dict[str, float]]:
+        """ECE / MCE / ACE of the raw softmax and, with a fitted ``ts_all``,
+        of the temperature-scaled one; their numbers under ``plots/``."""
+        logits = np.asarray(data["logits"])
+        y = np.asarray(data["gt_classes"]).astype(int)
+        plots = os.path.join(self.out_dir, "plots")
+        probs = stable_softmax(logits)
+        out = {"raw": reliability_diagram((probs.argmax(-1) + 1 == y).astype(float),
+                                          probs.max(-1),
+                                          os.path.join(plots, "reliability_raw.png"),
+                                          title="raw softmax")}
+        t = classification.get("ts_all")
+        if t is not None:
+            probs_t = stable_softmax(logits / np.asarray(t))
+            out["ts"] = reliability_diagram((probs_t.argmax(-1) + 1 == y).astype(float),
+                                            probs_t.max(-1),
+                                            os.path.join(plots, "reliability_ts.png"),
+                                            title="temperature scaled")
+        return out
+
+    def regression_plots(self, data) -> Dict[str, float]:
+        """Calibration of the aleatoric box σ against the gathered
+        residuals; its numbers under ``plots/``."""
+        res = np.asarray(data["gt_boxes"]) - np.asarray(data["pred_boxes"])
+        return regression_calibration_plot(
+            res.ravel(), np.asarray(data["sigma_al"]).ravel(),
+            os.path.join(self.out_dir, "plots", "regression_reliability.png"),
+            title="aleatoric box sigma")

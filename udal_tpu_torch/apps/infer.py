@@ -13,16 +13,22 @@ artifacts run in numpy:
   ``labeled/`` (with KITTI-format pseudo-labels, ``<stem>.txt``), else to
   ``examine/``; each with an ``images.txt`` of its names;
 * the top/bottom uncertainty buckets' ``images.txt`` (combined, and per
-  kind under ``uncert/``).
-
-Overlay images need drawing and figures the port does not have yet
-(ROADMAP A12); ``save_visualizations=True`` raises ``NotImplementedError``.
+  kind under ``uncert/``);
+* with ``save_visualizations``: each image's detection overlay and one
+  panel per decoded uncertainty (``visualizations/<stem>{,_mean_albox,
+  _mean_epbox,_max_epcls,_entropy}.png``, drawn by ``utils.visualize``
+  without the labels' text), and in each per-kind bucket a copy of its
+  images' overlays and their ``contact_sheet.png``. The overlays are drawn
+  on the batch's own pixels: native uint8 frames as they are, resized or
+  normalised ones (mapped back to uint8) with the boxes divided by the
+  image's scale.
 """
 
 from __future__ import annotations
 
 import ast
 import os
+import shutil
 import zlib
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -31,10 +37,14 @@ import torch
 
 from udal_tpu_torch.apps.calibration import (CalibrateBoxUncert, CalibrateClass,
                                              iou_matrix_corners, load_calibrators, relativize)
-from udal_tpu_torch.apps.reader_batches import serve_reader_batch
+from udal_tpu_torch.apps.reader_batches import (is_fast_batch, raw_pixels_from_batch,
+                                                serve_reader_batch)
 from udal_tpu_torch.apps.thresholding import read_optimal_thresholds
+from udal_tpu_torch.data.dataloader import denormalize_image
+from udal_tpu_torch.data.image_codec import decode_image, write_png
 from udal_tpu_torch.data.label_maps import get_label_map
 from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8
+from udal_tpu_torch.utils.visualize import contact_sheet, overlay_panels
 
 
 def _outputs_to_host(outputs) -> List[np.ndarray]:
@@ -106,18 +116,16 @@ class InferImages:
                  min_score: float = 0.0,
                  save_visualizations: bool = False,
                  bucket_fraction: float = 0.1):
-        if save_visualizations:
-            raise NotImplementedError(
-                "save_visualizations: the overlays and bucket thumbnails need drawing and "
-                "figures beside the port's image codec, not ported yet (ROADMAP A12)")
         self.driver = driver
         self.config = driver.config
         self.save_dir = save_dir
         self.min_score = min_score
         self.auto_labeling = auto_labeling
+        self.save_visualizations = save_visualizations
         self.bucket_fraction = bucket_fraction
         self._image_uncert: List[Tuple[str, float]] = []
         self._image_uncert_kind: Dict[str, List[Tuple[str, float]]] = {}
+        self._overlay_paths: Dict[str, str] = {}
         os.makedirs(save_dir, exist_ok=True)
         self.box_calib = self.cls_calib = None
         if calib_dir and os.path.isdir(calib_dir):
@@ -152,21 +160,39 @@ class InferImages:
 
     # -- main loop -----------------------------------------------------------------
 
-    def _serve(self, batch) -> Tuple[int, List[str], Dict[str, np.ndarray]]:
+    def _serve(self, batch):
         """One batch of any contract: a reader's ``(images, labels)``,
         ``(images, names, image_scales)`` of normalised network-size
-        images, or ``(raw_images, names)``."""
+        images, or ``(raw_images, names)``. Returns (batch size, names,
+        the split outputs, the overlays' pixels and the scales that map
+        the boxes onto them: both None without ``save_visualizations``;
+        the scales None where the pixels are in the boxes' frame)."""
+        pixels = overlay_scales = None
         if len(batch) == 2 and isinstance(batch[1], dict):
             images, labels = batch
             names = list(labels.get("image_names", labels.get("source_ids", [])))
             packed = serve_reader_batch(self.driver, images, labels)
+            if self.save_visualizations:
+                # detections are in the original frame: native (device-resize)
+                # pixels are too, resized pixels need the boxes divided by scale
+                native = is_fast_batch(images) and "warp_scale" in labels
+                pixels = raw_pixels_from_batch(images, labels, self.config)
+                if not native:
+                    overlay_scales = np.asarray(labels.get(
+                        "image_scales", np.ones(images.shape[0])), np.float32)
         elif len(batch) == 3:
             images, names, scales = batch
             packed = self.driver.serve_preprocessed(images, scales)
+            if self.save_visualizations:
+                pixels = denormalize_image(torch.as_tensor(images).cpu().numpy(),
+                                           self.config.mean_rgb, self.config.stddev_rgb)
+                overlay_scales = np.asarray(scales, np.float32)
         else:
             images, names = batch
             packed = self.driver.serve(images)
-        return images.shape[0], list(names), split_serve_outputs(self.config, packed)
+            pixels = images if self.save_visualizations else None
+        return (images.shape[0], list(names), split_serve_outputs(self.config, packed),
+                pixels, overlay_scales)
 
     def run(self, batches: Iterable[Tuple]) -> List[Dict]:
         """Serve the batches; write prediction_data.txt (and with
@@ -176,10 +202,13 @@ class InferImages:
         labeled_names: List[str] = []
         examine_names: List[str] = []
         for batch in batches:
-            b, names, out = self._serve(batch)
+            b, names, out, pixels, overlay_scales = self._serve(batch)
             for i in range(b):
+                overlay = None
+                if pixels is not None:
+                    overlay = (pixels[i], None if overlay_scales is None else overlay_scales[i])
                 rows.extend(self._image_rows(out, i, names[i], labeled_names,
-                                             examine_names))
+                                             examine_names, overlay))
         with open(os.path.join(self.save_dir, "prediction_data.txt"), "w") as f:
             for row in rows:
                 f.write(repr(row) + "\n")
@@ -191,7 +220,10 @@ class InferImages:
         self._write_buckets()
         return rows
 
-    def _image_rows(self, out, i, name, labeled_names, examine_names) -> List[Dict]:
+    def _image_rows(self, out, i, name, labeled_names, examine_names,
+                    overlay=None) -> List[Dict]:
+        """The image's rows; on the way its buckets' rankings, its gate
+        and, with ``overlay`` = (pixels, scale or None), its overlays."""
         n_val = int(out["valid_len"][i])
         scores = out["scores"][i][:n_val]
         boxes = out["boxes"][i][:n_val]
@@ -242,6 +274,13 @@ class InferImages:
                 if vals is not None and np.isfinite(vals).any():
                     self._image_uncert_kind.setdefault(kind, []).append(
                         (name, float(np.nanmax(vals))))
+        if overlay is not None and n_val:
+            pixels, scale = overlay
+            planes = {"albox": np.mean(rel_al, -1) if rel_al is not None else None,
+                      "mcbox": np.mean(rel_mc, -1) if rel_mc is not None else None,
+                      "mcclass": mcc_max, "entropy": entropy_i}
+            self._save_overlay(pixels, name, boxes if scale is None else boxes / scale,
+                               classes, scores, planes)
         keep = np.where(scores > self.min_score)[0]
         subdir = ""
         if self.auto_labeling:
@@ -288,6 +327,27 @@ class InferImages:
             rows.append(row)
         return rows
 
+    def _save_overlay(self, image, name, boxes, classes, scores, planes) -> None:
+        """The plain overlay and one panel per uncertainty, as PNGs under
+        ``visualizations/``. As the JAX package does, an image whose
+        largest value is at most 20 is taken for normalised and mapped
+        back to pixels first."""
+        img = np.asarray(image, np.float32)
+        if img.max() <= 20.0:
+            img = img * np.asarray(self.config.stddev_rgb, np.float32) + \
+                np.asarray(self.config.mean_rgb, np.float32)
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        panels = overlay_panels(img, np.asarray(boxes), np.asarray(classes).astype(int),
+                                np.asarray(scores), planes, min_score_thresh=self.min_score)
+        out_dir = os.path.join(self.save_dir, "visualizations")
+        os.makedirs(out_dir, exist_ok=True)
+        stem = os.path.splitext(os.path.basename(str(name)))[0] or "img"
+        for suffix, vis in panels.items():
+            path = os.path.join(out_dir, stem + suffix + ".png")
+            write_png(path, vis)
+            if not suffix:
+                self._overlay_paths[str(name)] = path
+
     def _write_buckets(self):
         """Top/bottom uncertainty image lists: a combined ranking
         (bottom10/top10) and per uncertainty kind
@@ -301,7 +361,27 @@ class InferImages:
             ranked = sorted(pairs, key=lambda t: t[1])
             k = max(1, int(np.ceil(len(ranked) * self.bucket_fraction)))
             for tag, sel in (("lower_uncert", ranked[:k]), ("upper_uncert", ranked[-k:])):
-                self._write_names(os.path.join(self.save_dir, "uncert", tag, kind), sel)
+                d = os.path.join(self.save_dir, "uncert", tag, kind)
+                self._write_names(d, sel)
+                self._bucket_artifacts(d, sel)
+
+    def _bucket_artifacts(self, bucket_dir: str, sel) -> None:
+        """Copy the bucket's overlays into it and tile them, read back from
+        their PNGs, into its ``contact_sheet.png``."""
+        copied, labels = [], []
+        for name, u in sel:
+            src = self._overlay_paths.get(str(name))
+            if src and os.path.exists(src):
+                shutil.copyfile(src, os.path.join(bucket_dir, os.path.basename(src)))
+                copied.append(src)
+                labels.append(f"{os.path.basename(src)} {u:.3g}")
+        if copied:
+            thumbs = []
+            for path in copied:
+                with open(path, "rb") as f:
+                    thumbs.append(decode_image(f.read()))
+            write_png(os.path.join(bucket_dir, "contact_sheet.png"),
+                      contact_sheet(thumbs, labels=labels))
 
     @staticmethod
     def _write_names(directory: str, sel) -> None:

@@ -5,9 +5,11 @@ Port of ``udal_tpu/apps/uncertainty_analysis.py``: read
 ``validate_results.txt``, relativize the box σ, select the uncertainties
 named by ``thr_sel_uncert`` (ENT / ALBOX / MCBOX / MCCLASS), optimize their
 combination and write optimal_params/optimal_thrs, the metric table and the
-top-10 rows. The JAX package's spider plot and heatmap need matplotlib and
-are not drawn; ``export_quadrant_crops`` (crops as PNG) raises
-``NotImplementedError``.
+top-10 rows. The JAX package's spider plot and FD@CD heatmap are written
+as their numbers (``plots/spider.json``, ``plots/fdcd_heatmap.json``:
+``utils.uncert_plots``). ``export_quadrant_crops`` writes each grid
+cell's crops as PNG (``data.image_codec.write_png``) and correlates the
+epistemic σ with a no-reference quality score.
 """
 
 from __future__ import annotations
@@ -17,9 +19,11 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from udal_tpu_torch.apps.thresholding import (UncertOptimal, threshold_metrics,
-                                              write_threshold_metrics)
+from udal_tpu_torch.apps.thresholding import (DEFAULT_IOU_THRS, UncertOptimal, roc_metrics,
+                                              threshold_metrics, write_threshold_metrics)
 from udal_tpu_torch.apps.validate import read_validate_results
+from udal_tpu_torch.data.image_codec import write_png
+from udal_tpu_torch.utils.uncert_plots import brisque_like_score, metric_heatmap, spider_plot
 
 
 def _safe_corr(a: Sequence[float], b: Sequence[float]) -> float:
@@ -104,11 +108,34 @@ class MainUncertAnalysis:
         write_threshold_metrics(
             os.path.join(self.out_dir, f"thr_metrics_{budget}_"
                          f"{self.fpr_tpr}.txt"), table)
-        self._write_top10(combined)
+        self._write_panels(table, uncerts, combined, tps, ious)
         return {"opt_params": params, "metrics": table}
 
-    def _write_top10(self, combined) -> None:
-        """The 10 rows with the largest combined uncertainty."""
+    def fdcd_matrix(self, methods: Dict[str, np.ndarray], tps, ious) -> np.ndarray:
+        """FD@CD (%) of each method [rows] at each IoU threshold of
+        ``DEFAULT_IOU_THRS`` [columns] (100 where the ROC is degenerate)."""
+        mat = []
+        for u in methods.values():
+            row = []
+            for thr in DEFAULT_IOU_THRS:
+                correct = ((ious >= thr) * tps).astype(int)
+                r = roc_metrics(u, correct, self.fpr_tpr, self.fix_cd)
+                row.append((r[1] if r != 0 else 1.0) * 100)
+            mat.append(row)
+        return np.asarray(mat)
+
+    def _write_panels(self, table, uncerts, combined, tps, ious) -> None:
+        """The spider plot's and the FD@CD heatmap's numbers under
+        ``plots/``, and the 10 rows with the largest combined
+        uncertainty."""
+        plots = os.path.join(self.out_dir, "plots")
+        spider_plot(table, os.path.join(plots, "spider.png"),
+                    title=f"uncertainty comparison ({self.thr_sel})")
+        methods = {**uncerts, "COMBO": combined}
+        metric_heatmap(self.fdcd_matrix(methods, tps, ious),
+                       [f"IoU{t:.2f}" for t in DEFAULT_IOU_THRS], list(methods),
+                       os.path.join(plots, "fdcd_heatmap.png"),
+                       title="FD@CD (%) per IoU threshold")
         order = np.argsort(-combined)[:10]
         with open(os.path.join(self.out_dir, "top10_uncertain.txt"), "w") as f:
             for idx in order:
@@ -157,9 +184,52 @@ def epistemic_vs_aleatoric(rows: List[Dict],
             "aleatoric": al}
 
 
-def export_quadrant_crops(*args, **kwargs):
-    """Per-cell detection crops saved as PNG with a quality score: not
-    ported yet (ROADMAP A12)."""
-    raise NotImplementedError("export_quadrant_crops: the crops' quality score needs the "
-                              "JAX package's uncert_plots, not ported yet beside the port's "
-                              "image codec (ROADMAP A12)")
+def export_quadrant_crops(rows: List[Dict], image_loader, out_dir: str, n_cells: int = 3,
+                          per_cell: int = 5, epistemic_key: str = "uncalib_mcbox",
+                          aleatoric_key: str = "uncalib_albox") -> Dict[str, object]:
+    """``epistemic_vs_aleatoric``'s grid, plus up to ``per_cell`` box crops
+    a cell written as ``out_dir/cell_<i>_<j>/crop_<k>.png`` and the
+    correlation of the crops' epistemic σ with their
+    ``brisque_like_score`` (0.0 with fewer than 3 crops).
+
+    Args:
+      image_loader: callable(image_name) -> RGB uint8 array (or None).
+    """
+    res = epistemic_vs_aleatoric(rows, epistemic_key, aleatoric_key, n_cells)
+    ep, al = res["epistemic"], res["aleatoric"]
+
+    def norm(x):
+        rng = x.max() - x.min()
+        return (x - x.min()) / rng if rng > 0 else np.zeros_like(x)
+
+    ep_n, al_n = norm(ep), norm(al)
+    cell_of = (np.minimum((ep_n * n_cells).astype(int), n_cells - 1),
+               np.minimum((al_n * n_cells).astype(int), n_cells - 1))
+
+    qualities, eps_used = [], []
+    counts = {}
+    for i in range(n_cells):
+        for j in range(n_cells):
+            idxs = np.where((cell_of[0] == i) & (cell_of[1] == j))[0]
+            cell_dir = os.path.join(out_dir, f"cell_{i}_{j}")
+            os.makedirs(cell_dir, exist_ok=True)
+            saved = 0
+            for idx in idxs[:per_cell]:
+                r = rows[int(idx)]
+                img = image_loader(r["image_name"])
+                if img is None:
+                    continue
+                y1, x1, y2, x2 = [int(max(v, 0)) for v in r["bbox"]]
+                crop = img[y1:y2 + 1, x1:x2 + 1]
+                if crop.size == 0:
+                    continue
+                write_png(os.path.join(cell_dir, f"crop_{saved}.png"), crop)
+                qualities.append(brisque_like_score(crop))
+                eps_used.append(float(ep[int(idx)]))
+                saved += 1
+            counts[(i, j)] = saved
+
+    corr = _safe_corr(eps_used, qualities) if len(qualities) > 2 else 0.0
+    res["crop_counts"] = counts
+    res["quality_epistemic_corr"] = corr
+    return res

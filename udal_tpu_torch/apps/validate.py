@@ -18,9 +18,13 @@ the driver's device from its uint8 pixels (``data.augment.AugmentVariants``):
 ``heq`` (Y equalised in YUV), ``alb`` (snow, fog, rain, noise), ``aug``
 (noise, motion blur, contrast and brightness ladders of three severities
 each) and ``flip`` (vertical, horizontal): 19 variant serves a batch with
-all four, beside the plain serve; their rows carry ``<name>@<tag>``. The
-JAX package's calibration panels (``aleatoric/``, ``mcdropout/``) need
-matplotlib and are not written.
+all four, beside the plain serve; their rows carry ``<name>@<tag>``.
+
+Beside ``validate_results.txt``, the aleatoric and MC box σ's calibration
+against the residuals goes to ``aleatoric/`` and ``mcdropout/`` (with at
+least 8 residuals): ``calibration.json``, the figure's numbers
+(``utils.uncert_plots.regression_calibration_plot``), and ``metrics.txt``,
+the ``repr`` of its miscalibration area, sharpness and RMSUE.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from udal_tpu_torch.apps.reader_batches import (groundtruth_from_labels, is_fast
 from udal_tpu_torch.data.augment import AugmentVariants
 from udal_tpu_torch.data.dataloader import denormalize_image
 from udal_tpu_torch.data.label_maps import get_ocl_trc
+from udal_tpu_torch.utils.uncert_plots import regression_calibration_plot
 
 AUGMENTS = ("heq", "alb", "aug", "flip")
 
@@ -241,6 +246,23 @@ class Validator:
         with open(os.path.join(self.save_dir, "validate_results.txt"), "w") as f:
             for row in rows:
                 f.write(repr(row) + "\n")
+        self._write_uncert_plots(rows)
+
+    def _write_uncert_plots(self, rows):
+        for key, tag in (("uncalib_albox", "aleatoric"), ("uncalib_mcbox", "mcdropout")):
+            res, sig = [], []
+            for r in rows:
+                if key not in r:
+                    continue
+                res.extend(np.asarray(r["gt_bbox"]) - np.asarray(r["bbox"]))
+                sig.extend(r[key])
+            if len(res) < 8:
+                continue
+            d = os.path.join(self.save_dir, tag)
+            metrics = regression_calibration_plot(np.asarray(res), np.asarray(sig),
+                                                  os.path.join(d, "calibration.png"), title=tag)
+            with open(os.path.join(d, "metrics.txt"), "w") as f:
+                f.write(repr(metrics) + "\n")
 
     def _write_performance(self, rows, all_scores):
         if rows:

@@ -425,7 +425,8 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--calib_dir", default=None)
     i.add_argument("--opt_thrs_path", default=None)
     i.add_argument("--save_visualizations", action="store_true",
-                   help="not ported (overlay images need an image library); refused")
+                   help="write detection overlays and uncertainty panels as PNG "
+                        "(<output_dir>/visualizations) and the buckets' contact sheets")
     i.add_argument("--ensemble_dirs", default=None,
                    help="comma-separated member model_dirs served as a deep ensemble")
     i.add_argument("--fast_input", action="store_true",

@@ -1,7 +1,8 @@
 """Dataset label maps and per-image occlusion/truncation metadata.
 
-Port of the parts of ``udal_tpu/data/label_maps.py`` the apps read: the
-class-id maps (background = 0, real classes from 1) and ``get_ocl_trc``.
+Port of ``udal_tpu/data/label_maps.py``: the class-id maps (background =
+0, real classes from 1), the datasets' shorthand codes and metadata
+(``available_datasets``, ``get_dataset_data``) and ``get_ocl_trc``.
 A label map comes as None, a dict, a registry name or a ``.yaml`` path,
 read by the port's own YAML reader (``config.load_yaml``: the machine with
 the card has no ``yaml``).
@@ -65,6 +66,34 @@ def get_label_map(mapping: Union[None, str, Dict]) -> Optional[Dict[int, str]]:
     if mapping.endswith((".yaml", ".yml")):
         return load_yaml(mapping)
     return _REGISTRY[mapping]
+
+
+def available_datasets(val: bool = False) -> List[str]:
+    """The datasets' shorthand codes: the validation sets' with ``val``."""
+    if val:
+        return ["k", "b", "kc", "bc", "ks", "bs", "cbs", "cks"]
+    return ["k", "b", "c"]
+
+
+def get_dataset_data(path: str, im_name: Optional[str] = None
+                     ) -> Tuple[Dict[int, str], Optional[str], List[str], List[int], Optional[str]]:
+    """Metadata of the dataset whose name (KITTI, BDD, CODA) ``path``
+    contains: (label map, image directory, capitalised class names, image
+    shape [H, W], the image's path when ``im_name`` is given). An unknown
+    path gives an empty map, no directory and shape [0, 0]."""
+    label_map: Dict[int, str] = {}
+    img_source_path = None
+    img_shape = [0, 0]
+    if "KITTI" in path:
+        label_map, img_source_path, img_shape = KITTI, "/KITTI/training/image_2/", [375, 1220]
+    elif "BDD" in path:
+        label_map, img_source_path = BDD, "/BDD100K/bdd100k/images/100k/val/"
+        img_shape = [720, 1280]
+    elif "CODA" in path:
+        label_map, img_source_path, img_shape = BDD, "/CODA/images/", [1000, 1500]
+    class_names = [label_map[i].capitalize() for i in sorted(label_map)]
+    img_file = (img_source_path + im_name) if (im_name and img_source_path) else None
+    return label_map, img_source_path, class_names, img_shape, img_file
 
 
 def get_ocl_trc(dataset_root: str, img_names: List[str]

@@ -12,8 +12,14 @@ has its counterpart here, held against cv2 5.0 in
   ``rgb_to_hls`` / ``hls_to_rgb``, ``rgb_to_lab`` / ``lab_to_rgb``, ``clahe``,
   ``warp_affine_nearest``, ``rotation_matrix_2d``, ``box_blur``,
   ``dilate_2x2``, ``draw_line`` at thickness 1, ``filter2d`` below 130
-  taps, ``calc_hist_3d`` (and ``ops.image_ops``' Gaussian blur of uint8
-  frames at every odd size);
+  taps, ``calc_hist_3d``, ``gaussian_blur_f64`` at its default 7x7 and
+  σ = 7/6, ``rectangle`` at every thickness (and ``ops.image_ops``'
+  Gaussian blur of uint8 frames at every odd size);
+- exact: ``get_text_size`` of ``FONT_HERSHEY_SIMPLEX`` at thickness 1 and
+  the scales 0.4 and 0.45 (the drawing code's two; others raise). cv2 5.0
+  draws that font's glyphs from an antialiased outline font, which the
+  port does not carry, so there is no ``putText``: the callers leave the
+  label text out (ROADMAP C16);
 - within a bound: ``filter2d`` at 130 taps or more (cv2 takes its DFT
   there: off by at most 1 where the exact sum is a tie), ``draw_line``
   thicker than 1 (a capsule, where cv2 fills a polygon and two discs),
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from udal_tpu_torch.ops.image_ops import reflect101_index
+from udal_tpu_torch.ops.text_metrics import FIRST_CHAR, SIMPLEX
 
 Array = Union[np.ndarray, torch.Tensor]
 F32 = np.float32
@@ -553,6 +560,82 @@ def gaussian_blur3_f32(x: Array) -> Array:
     return t.numpy() if as_numpy else t
 
 
+# cv2.getGaussianKernel(7, 7/6, CV_64F), as cv2 5.0 computes it (in its
+# software double arithmetic, whose exp differs from libm's in the last bit)
+_GAUSSIAN_7_SIGMA_7_6 = [float.fromhex(v) for v in (
+    "0x1.9b92991f2487fp-7", "0x1.42e11ca517a5fp-4", "0x1.e5fb7c557fad1p-3",
+    "0x1.5edacbc602377p-2", "0x1.e5fb7c557fad1p-3", "0x1.42e11ca517a5fp-4",
+    "0x1.9b92991f2487fp-7")]
+
+
+def gaussian_kernel_f64(ksize: int, sigma: float) -> np.ndarray:
+    """``cv2.getGaussianKernel(ksize, sigma, CV_64F)`` for an odd ``ksize``
+    and σ > 0: cv2's own values at (7, 7/6); elsewhere its formula
+    (exp(−x²/2σ²) at the half-integer-free offsets, normalised by one
+    reciprocal) in libm's arithmetic, within two ulps of cv2's."""
+    if ksize % 2 == 0 or sigma <= 0:
+        raise ValueError(f"gaussian_kernel_f64 takes an odd ksize and sigma > 0, "
+                         f"got {ksize}, {sigma}")
+    if ksize == 7 and sigma == 7.0 / 6.0:
+        return np.array(_GAUSSIAN_7_SIGMA_7_6)
+    scale2 = -0.125 / (sigma * sigma)     # the offsets are taken doubled
+    values = [math.exp(float(x * x) * scale2) for x in range(1 - ksize, 0, 2)]
+    norm = 1.0 / (2 * sum(values) + 1.0)
+    half = [v * norm for v in values]
+    return np.array(half + [norm] + half[::-1])
+
+
+_SPLIT = 134217729.0                       # 2^27 + 1, Veltkamp's splitter
+
+
+def _fma64(a: np.ndarray, b: float, c: np.ndarray) -> np.ndarray:
+    """f64 fused multiply-add, a·b + c rounded once: the product's error
+    and the sum's recovered exactly (Dekker, Knuth) and added back."""
+    p = a * b
+    t = _SPLIT * a
+    ah = t - (t - a)
+    al = a - ah
+    t = _SPLIT * b
+    bh = t - (t - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bp = s - p
+    return s + (((p - (s - bp)) + (c - bp)) + e)
+
+
+def gaussian_blur_f64(x: np.ndarray, ksize: int = 7, sigma: float = 7.0 / 6.0) -> np.ndarray:
+    """``cv2.GaussianBlur(x, (ksize, ksize), sigma)`` of an f64 plane [H, W]
+    (BORDER_REFLECT_101), as cv2 5.0 built for AVX2 filters f64: along
+    W each output sums its taps in order, with fused multiply-adds in each
+    row's first ``W // 4 * 4`` columns (its unrolled loop) and separate
+    roundings in the rest; along H the symmetric kernel's centre tap,
+    then each pair of mirrored rows summed before its tap multiplies it.
+    A plane of one row skips the pass along H, one of one column the pass
+    along W (cv2 drops the kernel along an axis of length 1). Bit for bit
+    with cv2 at the default 7x7 and σ = 7/6."""
+    x = np.asarray(x, np.float64)
+    k = gaussian_kernel_f64(ksize, sigma)
+    a = ksize // 2
+    h, w = x.shape
+    rows = x
+    if w > 1:
+        p = x[:, reflect101_index(w, a, a)]
+        vec = w // 4 * 4
+        rows = k[0] * p[:, :w]
+        for j in range(1, ksize):
+            tap = p[:, j:j + w]
+            rows = np.concatenate([_fma64(tap[:, :vec], k[j], rows[:, :vec]),
+                                   rows[:, vec:] + k[j] * tap[:, vec:]], axis=1)
+    if h == 1:
+        return rows
+    p = rows[reflect101_index(h, a, a)]
+    out = k[a] * p[a:a + h]
+    for j in range(1, a + 1):
+        out = out + k[a + j] * (p[a + j:a + j + h] + p[a - j:a - j + h])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Drawing
 # ---------------------------------------------------------------------------
@@ -642,3 +725,63 @@ def draw_line(canvas: np.ndarray, p1: Tuple[int, int], p2: Tuple[int, int], colo
     dist2 = (xs - (x1 + t * dx)) ** 2 + (ys - (y1 + t * dy)) ** 2
     inside = dist2 <= r * r
     canvas[lo_y:hi_y + 1, lo_x:hi_x + 1][inside] = color
+
+
+def _fill(canvas: np.ndarray, x1: int, y1: int, x2: int, y2: int, color) -> None:
+    """Fill the inclusive box between two corners, clipped to the canvas."""
+    h, w = canvas.shape[:2]
+    x1, x2 = sorted((x1, x2))
+    y1, y2 = sorted((y1, y2))
+    x1, y1, x2, y2 = max(x1, 0), max(y1, 0), min(x2, w - 1), min(y2, h - 1)
+    if x1 <= x2 and y1 <= y2:
+        canvas[y1:y2 + 1, x1:x2 + 1] = color
+
+
+def rectangle(canvas: np.ndarray, p1: Tuple[int, int], p2: Tuple[int, int], color,
+              thickness: int = 1) -> None:
+    """``cv2.rectangle(canvas, p1, p2, color, thickness)`` in place
+    (LINE_8, integer corners (x, y)), bit for bit at thickness 1, 2 and −1.
+    cv2 draws the closed outline side by side from the left edge's lower
+    end: at thickness 1 each side is ``draw_line``; at 2 each side is a
+    band one pixel to either side of it (cv2's polygon of half-width 1)
+    and each side's end a disc of radius 1 (the pixel and its four
+    neighbours); −1 fills the box. Thicker outlines are not drawn here."""
+    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    if thickness < 0:
+        _fill(canvas, x1, y1, x2, y2, color)
+        return
+    sides = [((x1, y2), (x1, y1)), ((x1, y1), (x2, y1)), ((x2, y1), (x2, y2)),
+             ((x2, y2), (x1, y2))]
+    if thickness <= 1:
+        for a, b in sides:
+            draw_line(canvas, a, b, color)
+        return
+    if thickness != 2:
+        raise ValueError(f"rectangle draws thickness 1, 2 or -1, got {thickness}")
+    for (ax, ay), (bx, by) in sides:
+        if ay == by and ax != bx:
+            _fill(canvas, ax, ay - 1, bx, by + 1, color)
+        elif ax == bx and ay != by:
+            _fill(canvas, ax - 1, ay, bx + 1, by, color)
+        _fill(canvas, bx - 1, by, bx + 1, by, color)
+        _fill(canvas, bx, by - 1, bx, by + 1, color)
+
+
+def get_text_size(text: str, scale: float, thickness: int = 1) -> Tuple[Tuple[int, int], int]:
+    """``cv2.getTextSize(text, FONT_HERSHEY_SIMPLEX, scale, thickness)`` of
+    printable ASCII at thickness 1 and scale 0.4 or 0.45: ((width,
+    height), baseline) from cv2 5.0's measured metrics
+    (``ops.text_metrics``): one pixel plus the characters' advances, the
+    scale's height, the deepest character's baseline; ((0, 0), 0) for an
+    empty text."""
+    if thickness != 1 or scale not in SIMPLEX:
+        raise ValueError(f"get_text_size knows thickness 1 at scales {sorted(SIMPLEX)}, "
+                         f"got thickness {thickness}, scale {scale}")
+    if not text:
+        return (0, 0), 0
+    table = SIMPLEX[scale]
+    idx = [ord(c) - FIRST_CHAR for c in text]
+    if min(idx) < 0 or max(idx) >= len(table["advance"]):
+        raise ValueError(f"get_text_size knows printable ASCII only, got {text!r}")
+    width = 1 + sum(table["advance"][i] for i in idx)
+    return (width, table["height"]), max(table["baseline"][i] for i in idx)

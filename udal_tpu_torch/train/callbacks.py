@@ -9,14 +9,18 @@ and the detection-correctness ROC with its AUC (the port's own
 ``roc_curve`` / ``auc``) are written as numbers, one JSON file a panel
 under ``<log_dir>/panels/<tag>_epoch<e>.json``.
 
-The JAX callback also draws those panels and a grid of detections over
-(NMS IoU, score) thresholds as images with matplotlib and PIL, which the
-machine with the card does not have: the port draws no image.
+The JAX callback draws those three panels with matplotlib, which the
+machine with the card does not have. Its fourth panel, the grid of
+detections over (NMS IoU, score) thresholds on the first validation
+image, is drawn (``utils.visualize``, labels without their text) and
+written as ``panels/nms_grid_epoch<e>.png``.
 
 The serve is a ``ServingDriver`` over the train state's live weights on
 the state's device (bf16 on a card, as ``cli eval`` serves), so on a card
 each validation batch launches the soft-NMS, fused depthwise and fused
-expand + depthwise kernels 1, 1 and 15 times.
+expand + depthwise kernels 1, 1 and 15 times; the grid adds one forward
+of the probe image (1 fused depthwise, 15 fused expand + depthwise) and
+one post-processing a cell (9 soft-NMS).
 """
 
 from __future__ import annotations
@@ -31,8 +35,14 @@ import torch
 from udal_tpu_torch.apps.reader_batches import groundtruth_from_labels, serve_reader_batch
 from udal_tpu_torch.apps.serving import ServingDriver
 from udal_tpu_torch.apps.thresholding import auc, roc_curve
+from udal_tpu_torch.data.image_codec import write_png
 from udal_tpu_torch.eval.coco import COCOEvaluator
 from udal_tpu_torch.ops.boxes import pairwise_iou
+from udal_tpu_torch.ops.postprocess import postprocess_global
+from udal_tpu_torch.utils.visualize import visualize_boxes_and_labels
+
+NMS_GRID_IOUS = (0.3, 0.5, 0.7)
+NMS_GRID_SCORES = (0.1, 0.3, 0.5)
 
 
 def detection_rows(det, first_id: int) -> np.ndarray:
@@ -82,18 +92,22 @@ class COCOCallback:
         device = next(state.model.parameters()).device
         return ServingDriver(self.config, state.model.state_dict(), device=device)
 
-    def evaluate(self, driver: ServingDriver) -> Tuple[Dict[str, float], np.ndarray, np.ndarray]:
+    def evaluate(self, driver: ServingDriver) -> Tuple[Dict[str, float], np.ndarray,
+                                                       np.ndarray, Tuple]:
         """Serve ``val_steps`` validation batches through ``driver``:
         (the COCO numbers on the 0.05 grid, the confusion matrix, the
-        (score, hit) pairs)."""
+        (score, hit) pairs, the first batch)."""
         evaluator = COCOEvaluator(label_map=self.label_map, fine_grid=True)
         num_classes = int(self.config.num_classes)
         cm = np.zeros((num_classes + 1, num_classes + 1), np.int64)
         pairs: List[Tuple[float, float]] = []
         it = self.val_iter_fn()
         img_id = 0
+        first_batch = None
         for _ in range(self.val_steps):
             images, labels = next(it)
+            if first_batch is None:
+                first_batch = (images, labels)
             det = serve_reader_batch(driver, images, labels, structured=True)
             rows = detection_rows(det, img_id)
             img_id += rows.shape[0]
@@ -101,7 +115,49 @@ class COCOCallback:
             evaluator.update_state(gt, rows)
             self._update_confusion(cm, det.boxes.float().cpu(), rows[..., 5], rows[..., 6],
                                    gt, pairs)
-        return evaluator.result(), cm, np.asarray(pairs, np.float64).reshape(-1, 2)
+        return (evaluator.result(), cm, np.asarray(pairs, np.float64).reshape(-1, 2),
+                first_batch)
+
+    def nms_grid(self, driver: ServingDriver, batch) -> np.ndarray:
+        """The first image of ``batch`` at the network's size, drawn once a
+        cell of (NMS IoU, score) thresholds (rows by IoU, columns by
+        score) with the detections of one forward pass (one dropout draw
+        with MC dropout) post-processed at that cell's thresholds, boxes
+        in the network's frame."""
+        images, labels = batch
+        cfg = self.config
+        with torch.inference_mode():
+            if images.dtype in (np.uint8, torch.uint8):
+                def first(key):
+                    v = labels.get(key)
+                    return None if v is None else v[:1]
+                x, _ = driver._dispatch_uint8(images[:1], first("valid_hw"), None,
+                                              first("warp_scale"), first("warp_offset"))
+            else:
+                x = torch.as_tensor(images[:1], device=driver.device)
+            outs = driver.model(x.to(driver.dtype), driver.masks if cfg.mc_dropout else None)
+            mean = np.asarray(cfg.mean_rgb, np.float32)
+            std = np.asarray(cfg.stddev_rgb, np.float32)
+            disp = np.clip(x[0].float().cpu().numpy() * std + mean, 0, 255).astype(np.uint8)
+            base = (cfg.nms_configs.get("iou_thresh"), cfg.nms_configs.get("score_thresh"))
+            rows = []
+            try:
+                for iou_t in NMS_GRID_IOUS:
+                    cols = []
+                    for score_t in NMS_GRID_SCORES:
+                        cfg.nms_configs["iou_thresh"] = iou_t
+                        cfg.nms_configs["score_thresh"] = score_t
+                        det = postprocess_global(cfg, outs[0], outs[1])
+                        scores = det.scores[0].float().cpu().numpy()
+                        keep = scores > score_t
+                        cols.append(visualize_boxes_and_labels(
+                            disp.copy(), det.boxes[0].float().cpu().numpy()[keep],
+                            det.classes[0].float().cpu().numpy()[keep].astype(int),
+                            scores[keep], label_map=self.label_map))
+                    rows.append(np.concatenate(cols, axis=1))
+            finally:
+                cfg.nms_configs["iou_thresh"], cfg.nms_configs["score_thresh"] = base
+        return np.concatenate(rows, axis=0)
 
     @staticmethod
     def _update_confusion(cm, boxes: torch.Tensor, scores, classes, gt, pairs,
@@ -156,7 +212,10 @@ class COCOCallback:
         """Evaluate ``state``; write the panels and, with ``writer``, the
         COCO numbers (the per-class APs left out) and the ROC's AUC.
         Returns the AP."""
-        results, cm, pairs = self.evaluate(self.driver(state))
+        driver = self.driver(state)
+        results, cm, pairs, first_batch = self.evaluate(driver)
+        grid = self.nms_grid(driver, first_batch)
+        write_png(os.path.join(self.log_dir, "panels", f"nms_grid_epoch{epoch}.png"), grid)
         panels = self.panels(results, cm, pairs)
         for tag, payload in panels.items():
             if payload is None:
@@ -165,6 +224,7 @@ class COCOCallback:
                       "w") as f:
                 json.dump(payload, f)
         if writer is not None:
+            writer.write_image(epoch, "nms_grid", grid)
             metrics = {k: v for k, v in results.items() if not k.startswith("AP_/")}
             if panels["roc"] is not None:
                 metrics["roc_auc"] = panels["roc"]["auc"]

@@ -23,5 +23,11 @@ class MetricsWriter:
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
+    def write_image(self, step: int, tag: str, image) -> None:
+        """Does nothing. The JAX package writes an image summary only to
+        TensorBoard and returns when there is none; the port has no
+        TensorBoard, so callers write their images as PNG files themselves
+        (``data.image_codec.write_png``)."""
+
     def close(self) -> None:
         self._jsonl.close()
