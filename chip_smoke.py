@@ -186,6 +186,24 @@ exit code:
    phase 11 (``phase12("cpu", "...", native=(60, 100),
    extra=dict(image_size="64x64", fpn_cell_repeats=1, box_class_repeats=1,
    mc_dropoutsamp=2))``, ~5 s).
+13. multi-GPU, the port over ``torch.distributed`` on the one card: (a) a
+   world of one over NCCL (a TCP store on 127.0.0.1): a data-parallel
+   step at phase 8's operating point equal to the single process's with
+   cuDNN deterministic (and the single bf16 step's swing when the batch's
+   rows are only reordered), ``serve_sharded`` of 16 images equal to two
+   ``serve`` calls with 1/15/1 launches a batch, ``serve_sample_parallel``
+   at T=10 equal to ``serve``; (b) two spawned processes sharing the card
+   over gloo: which collectives gloo takes on CUDA tensors, f32
+   data-parallel (4 rows a rank) and tensor-parallel (n_model 2) steps
+   against the single process's f32 step (loss 2e-3 relative, update 1e-2
+   relative L2), each rank's parameter + optimizer bytes, and
+   ``serve_sample_parallel`` with 5 samples a rank (1/15/1 launches on
+   each) against the same split samples served in one process. It writes
+   and removes ``build/chip_smoke_parallel/``; rehearse it on the CPU from
+   a script with the ``__main__`` guard, one torch thread and ``per_serve``
+   giving (0, 0, 0): ``phase13(torch.device("cpu"), "...", 0.0, 0.0,
+   extra=dict(image_size="64x64", fpn_cell_repeats=1, box_class_repeats=1,
+   mc_dropoutsamp=2))``, ~25 s.
    Then the script's total time.
 
 The line before the last is a JSON summary of the kernels: each with its
@@ -204,6 +222,7 @@ function where there is one. The last line is ``{"ok": true, "device":
 """
 
 import ast
+import contextlib
 import hashlib
 import itertools
 import json
@@ -1049,10 +1068,8 @@ def phase8(dev, smi, profiled=False):
     seed; the targets are assigned on the card. Each step is timed to a
     synchronisation after it (a wrapper around the loop's ``train_step``),
     so the loop's host run-ahead is not measured."""
-    path, overrides = KITTI_TRAIN
-    cfg = get_detection_config("efficientdet-d0").override(overrides)
-    cfg.override(KITTI_RUNNER[1], allow_new_keys=True)
-    cfg.override(dict(num_epochs=TRAIN_EPOCHS, save_freq=1))
+    path = KITTI_TRAIN[0]
+    cfg = kitti_train_config()
     h, w = parse_image_size(cfg.image_size)
     rng = np.random.RandomState(10)
     data = [synthetic_batch(rng, cfg.batch_size, h, w, cfg.num_classes) for _ in range(4)]
@@ -1149,6 +1166,7 @@ def phase8(dev, smi, profiled=False):
     del server, out
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
+    return ms
 
 
 class ServeClock:
@@ -2150,6 +2168,462 @@ def check_serve_launches(what, launches, batches):
                              f"1/15/1 a batch")
 
 
+# -- phase 13: multi-GPU (the port over torch.distributed) ---------------------
+
+PARALLEL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"
+POOL = 16                       # serve_sharded's pool: two batches of BATCH
+# the step comparisons' tolerances (loss: relative; update: the parameters'
+# change, relative L2 over the tree), every step with cuDNN's deterministic
+# algorithms: (a) a world of one against the single process, both bf16;
+# (b) in f32 (TF32 off) two ranks of 4 rows, and the tensor-parallel pair,
+# against the single process (loss: JAX's own TP-vs-DP tolerance,
+# tests/test_tensor_parallel.py; update: the gradient tolerance of
+# tests/test_torch_train_step.py); (b) in bf16, the configuration's own
+# precision, against (a)'s step: a rank's 4 rows and the channel slices round
+# otherwise than the whole batch does, as reordering the batch's rows (each
+# keeping its masks) does, and phase 13 (a) prints how far that moves the
+# step. On the H100 the reordered bf16 step's loss moved 0.0611 and its
+# update 1.38 relative L2 (f32: 8.2e-6 and 1.0e-3): two clipped bf16 updates
+# of these random weights are as far apart as unrelated ones of equal norm
+# (sqrt 2), so in bf16 only the loss is held, within 0.15 (above every
+# reading, PERF.md phase 13), and the update is printed
+STEP_TOL_A = dict(loss=1e-6, update=1e-5)
+STEP_TOL_B = dict(loss=2e-3, update=1e-2)
+STEP_TOL_BF16 = dict(loss=0.15, update=None)
+# serve_sample_parallel's per-sample maps against serve's single T-sample forward
+# (the largest difference over the largest magnitude): the two differ only in
+# the batch of samples a convolution sees (readings in PERF.md, phase 13)
+WHOLE_TOL = 2.0 ** -8
+
+
+def kitti_train_config(extra=None):
+    """Phase 8's configuration: KITTI's training hparams at the runner's batch."""
+    cfg = get_detection_config("efficientdet-d0").override(KITTI_TRAIN[1])
+    cfg.override(dict(KITTI_RUNNER[1], **(extra or {})), allow_new_keys=True)
+    cfg.override(dict(num_epochs=TRAIN_EPOCHS, save_freq=1))
+    return cfg
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class PermutedDropout:
+    """A mask source whose draws follow a reordering of the batch's rows:
+    row i of a draw is row ``perm[i]`` of the plain source's, so every
+    image of a reordered batch keeps its own masks."""
+
+    def __init__(self, source, perm):
+        self.source, self.perm = source, torch.as_tensor(perm)
+
+    def draw(self, n, c, keep, device):
+        return self.source.draw(n, c, keep, device)[self.perm.to(device)]
+
+
+@contextlib.contextmanager
+def timed_collectives(dev):
+    """Count and time every ``torch.distributed`` all_reduce, all_gather
+    and broadcast inside (the port's three collectives), each call between
+    two synchronisations of ``dev``: yields {"calls", "ms", "bytes"}, filled
+    as the calls come."""
+    import torch.distributed as dist
+
+    stats = {"calls": 0, "ms": 0.0, "bytes": 0}
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather", "broadcast")}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            t = kwargs.get("tensor", args[1] if name == "all_gather" else args[0])
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(dev)
+            stats["calls"] += 1
+            stats["ms"] += (time.perf_counter() - t0) * 1e3
+            stats["bytes"] += t.numel() * t.element_size()
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield stats
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def parallel_step(cfg, dev, batch, mesh=None, tensor_parallel=False, perm=None,
+                  collectives=None):
+    """One training step from the weights of seed 0 (the single process's
+    without ``mesh``; a data- or tensor-parallel rank's, on its rows of the
+    batch, with it), the batch's rows reordered by ``perm`` with their
+    masks: (the global values, the whole parameters after it on the host,
+    ms to a synchronisation, this rank's parameter + optimizer-state
+    bytes). A ``collectives`` dict gets the step's collectives counted and
+    timed (``timed_collectives``)."""
+    from udal_tpu_torch.parallel.mesh import replicate_state, shard_batch, shard_state_tp
+
+    state, schedule = train_lib.create_train_state(cfg, TRAIN_STEPS,
+                                                   torch.Generator().manual_seed(0), dev)
+    images, labels = batch
+    if perm is not None:
+        images, labels = images[perm], {k: v[perm] for k, v in labels.items()}
+    if mesh is not None:
+        (shard_state_tp if tensor_parallel else replicate_state)(mesh, state)
+        rows = shard_batch(mesh, {"images": images, **labels})
+        images, labels = rows.pop("images"), rows
+    dropout = train_lib.ChannelDropout
+    if perm is not None:
+        train_lib.ChannelDropout = lambda generator: PermutedDropout(dropout(generator), perm)
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        with (timed_collectives(dev) if collectives is not None
+              else contextlib.nullcontext({})) as stats:
+            state, vals = train_lib.train_step(cfg, schedule, TRAIN_STEPS, state, images,
+                                               labels)
+    finally:
+        train_lib.ChannelDropout = dropout
+    sync(dev)
+    if collectives is not None:
+        collectives.update(stats)
+    ms = (time.perf_counter() - t0) * 1e3
+    own = list(state.model.parameters()) + [v for s in state.optimizer.state.values()
+                                            for v in s.values() if torch.is_tensor(v)]
+    nbytes = sum(t.numel() * t.element_size() for t in own)
+    with state.tp.gathered(state) if state.tp is not None else contextlib.nullcontext():
+        params = {n: p.detach().float().cpu() for n, p in state.model.named_parameters()}
+    return {k: float(v) for k, v in vals.items()}, params, ms, nbytes
+
+
+def step_difference(got, want, init):
+    """(the loss's relative difference, the update's relative L2 difference
+    over the tree) of two steps from the same ``init`` parameters."""
+    loss = abs(got[0]["loss"] - want[0]["loss"]) / abs(want[0]["loss"])
+    num = sum(float(((got[1][n] - want[1][n]) ** 2).sum()) for n in want[1])
+    den = sum(float(((want[1][n] - init[n]) ** 2).sum()) for n in want[1])
+    return loss, (num / den) ** 0.5
+
+
+def timed_serves(fn, dev):
+    """``SERVE_CALLS`` calls of ``fn``, each ending in a synchronisation,
+    the launch counts set to 0 before the first: (the last output, ms per
+    call from the median of calls 2 to SERVE_CALLS, the first call's ms,
+    the launches)."""
+    reset_counts()
+    walls = []
+    for _ in range(SERVE_CALLS):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+    return out, statistics.median(walls[1:]) * 1e3, walls[0] * 1e3, counts()
+
+
+def check_step(what, diff, tol):
+    """Hold a step's (loss, update) differences to ``tol``; an update
+    tolerance of None prints the update's difference and holds nothing."""
+    loss, update = diff
+    if not (loss <= tol["loss"] and (tol["update"] is None or update <= tol["update"])):
+        raise AssertionError(f"{what}: loss {loss:.3g} (tolerance {tol['loss']}), update "
+                             f"{update:.3g} relative L2 (tolerance {tol['update']})")
+    held = f"tolerance {tol['update']}" if tol["update"] is not None else "not held"
+    return (f"loss within {loss:.3g} (tolerance {tol['loss']}), update {update:.3g} "
+            f"relative L2 away ({held})")
+
+
+def gloo_cuda_collectives(dev):
+    """Which of the port's three collectives the gloo backend runs on a
+    CUDA tensor (each rank calls them in one order): {name: True, or the
+    refusal's first line}; then each through the port's wrapper, checked
+    (``parallel/collectives.py`` relies on gloo taking all three)."""
+    import torch.distributed as dist
+
+    from udal_tpu_torch.parallel import collectives
+
+    rank, out = dist.get_rank(), {}
+    for name, call in (("all_reduce", lambda t: dist.all_reduce(t)),
+                       ("broadcast", lambda t: dist.broadcast(t, 0)),
+                       ("all_gather", lambda t: dist.all_gather(
+                           [torch.empty_like(t) for _ in range(2)], t))):
+        try:
+            call(torch.full((4,), float(rank + 1), device=dev))
+            sync(dev)
+            out[name] = True
+        except RuntimeError as e:
+            out[name] = str(e).splitlines()[0][:120]
+    t = torch.full((4,), float(rank + 1), device=dev)
+    if float(collectives.all_reduce(t, dist.group.WORLD)[0]) != 3.0:
+        raise AssertionError(f"all_reduce over gloo on {dev}: {t.tolist()}")
+    g = collectives.all_gather(torch.full((2,), float(rank), device=dev), dist.group.WORLD)
+    if g.tolist() != [0.0, 0.0, 1.0, 1.0]:
+        raise AssertionError(f"all_gather over gloo on {dev}: {g.tolist()}")
+    b = collectives.broadcast(torch.full((2,), float(rank + 5), device=dev), 0)
+    if b.tolist() != [5.0, 5.0]:
+        raise AssertionError(f"broadcast over gloo on {dev}: {b.tolist()}")
+    return out
+
+
+def phase13_rank(rank, info, dev_name, extra, batch, raw):
+    """One of phase 13 (b)'s two processes on the card (gloo): the
+    collectives gloo takes, a data-parallel step at world 2 and a
+    tensor-parallel step at n_model 2, each in bf16 and in f32, then each
+    bf16 step again with its collectives counted and timed, and
+    serve_sample_parallel with T / 2 samples a rank with its launches;
+    written to PARALLEL_DIR."""
+    from udal_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cudnn.deterministic = True
+    out = {"gloo_cuda": gloo_cuda_collectives(dev) if dev.type == "cuda" else {}}
+    cfg16 = kitti_train_config(extra)
+    cfg32 = kitti_train_config(dict(extra or {}, mixed_precision=False))
+    dp_mesh, tp_mesh = make_mesh(device=dev), make_mesh(n_model=2, device=dev)
+    for key, cfg in (("", cfg16), ("32", cfg32)):
+        out["dp" + key] = parallel_step(cfg, dev, batch, dp_mesh)
+        out["tp" + key] = parallel_step(cfg, dev, batch, tp_mesh, tensor_parallel=True)
+    for key, mesh in (("dp", dp_mesh), ("tp", tp_mesh)):
+        stats = {}
+        step_ms = parallel_step(cfg16, dev, batch, mesh, tensor_parallel=key == "tp",
+                                collectives=stats)[2]
+        out[key + "_collectives"] = dict(stats, step_ms=step_ms)
+    server = ServingDriver.create("efficientdet-d0", overrides={**MAIN_PATH, **(extra or {})},
+                                  seed=0, device=dev)
+    mesh = make_mesh(device=dev)
+    server.serve_sample_parallel(mesh, raw)            # warm
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    packed_out = server.serve_sample_parallel(mesh, raw)
+    sync(dev)
+    out["sample"] = ([t.cpu() for t in packed_out], (time.perf_counter() - t0) * 1e3, counts())
+    torch.save(out, PARALLEL_DIR / f"rank{rank}.pt")
+
+
+def split_sample_reference(extra, dev, raw, ranks=2):
+    """What ``ranks`` ranks' ``serve_sample_parallel`` (each after one
+    warm-up call) computes, in this process: rank r's share of the samples
+    from a fresh driver warmed by one ``serve``, at the rank's batch of
+    T/ranks samples (the convolutions' rounding follows the batch), the
+    sample maps joined and post-processed once. Returns (its packed tuple,
+    the joined maps: class and box outputs, lists of [T, B, H, W, C])."""
+    from udal_tpu_torch.models.efficientnet import ShardedDropout
+    from udal_tpu_torch.ops.postprocess import postprocess_global
+
+    outs = []
+    for r in range(ranks):
+        d = ServingDriver.create("efficientdet-d0", overrides={**MAIN_PATH, **(extra or {})},
+                                 seed=0, device=dev)
+        d.serve(raw)
+        with torch.inference_mode():
+            images, scales = d._raw(raw)
+            outs.append(d._forward(images.to(d.dtype), ShardedDropout(d.masks, r, ranks),
+                                   samples=d.config.mc_dropoutsamp // ranks))
+    cls, box = ([torch.cat([o[j][level] for o in outs]) for level in range(len(outs[0][j]))]
+                for j in (0, 1))
+    with torch.inference_mode():
+        return (postprocess_global(d.config, cls, box, image_scales=scales).packed(),
+                (cls, box))
+
+
+def maps_difference(a, b, shift=0):
+    """The largest differences of two MC forwards' per-sample class and box
+    maps (lists of [T, B, H, W, C]), each over the largest magnitude of
+    ``b``'s; ``shift`` rolls ``a``'s samples first (a shift of T/2 pairs
+    each sample with the one a rank taking the wrong block would draw)."""
+    return tuple(max(float((x.float().roll(shift, 0) - y.float()).abs().max()) for x, y in
+                     zip(a[j], b[j])) / max(float(y.float().abs().max()) for y in b[j])
+                 for j in (0, 1))
+
+
+def phase13(dev, smi, ms_serve, ms_step, extra=None, pool=POOL):
+    """Multi-GPU: the port over torch.distributed, on the one card.
+
+    (a) a world of one over NCCL (a TCP store on 127.0.0.1; every
+    collective a real NCCL call): one data-parallel step at phase 8's
+    operating point against the single process's step from the same
+    weights and batch; ``serve_sharded`` of ``pool`` images at the main
+    path's operating point against two ``serve`` calls (matched sets,
+    1/15/1 launches a batch); ``serve_sample_parallel`` at T = 10 against
+    ``serve`` under the same masks; how far reordering the batch's rows
+    (each keeping its masks) moves the single process's step, in bf16 and
+    in f32. (b) two spawned processes sharing the card over gloo (NCCL
+    refuses two ranks on one device): the collectives gloo takes on CUDA
+    tensors, a data-parallel step at world 2 (4 rows a rank) and a
+    tensor-parallel step at n_model 2, in bf16 against (a)'s step and in
+    f32 against the single process's f32 step, each step's collectives
+    counted and timed, each rank's parameter + optimizer-state bytes, and
+    serve_sample_parallel with 5 samples a rank against the same samples
+    served in one process, whose per-sample maps are held against
+    ``serve``'s T-sample forward, every rank launching B1/B2/B3. ``extra``
+    adds hparams (a CPU rehearsal's small size)."""
+    import torch.distributed as dist
+
+    from udal_tpu_torch.parallel.dryrun import free_port, spawn_world
+    from udal_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    cfg = kitti_train_config(extra)
+    h, w = parse_image_size(cfg.image_size)
+    batch = synthetic_batch(np.random.RandomState(13), cfg.batch_size, h, w, cfg.num_classes)
+    raw = np.random.RandomState(1).randint(0, 256, (BATCH, h, w, 3)).astype(np.uint8)
+    t = {**MAIN_PATH, **(extra or {})}["mc_dropoutsamp"]
+    cfg32 = kitti_train_config(dict(extra or {}, mixed_precision=False))
+    perm = np.r_[cfg.batch_size // 2:cfg.batch_size, 0:cfg.batch_size // 2]
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        single = parallel_step(cfg, dev, batch)
+        again = parallel_step(cfg, dev, batch)
+        reordered = parallel_step(cfg, dev, batch, perm=perm)
+        single32 = parallel_step(cfg32, dev, batch)
+        reordered32 = parallel_step(cfg32, dev, batch, perm=perm)
+        init = {n: p.detach().float().cpu() for n, p in train_lib.create_train_state(
+            cfg, TRAIN_STEPS, torch.Generator().manual_seed(0), "cpu")[0].model.named_parameters()}
+        info = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+        backend = dist.get_backend()
+        mesh = make_mesh(device=dev)
+        world1 = parallel_step(cfg, dev, batch, mesh)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    repeat = check_step("phase 13 (a) single process twice", step_difference(again, single, init),
+                        STEP_TOL_A)
+    line = check_step("phase 13 (a) data-parallel step at a world of one",
+                      step_difference(world1, single, init), STEP_TOL_A)
+    moved = step_difference(reordered, single, init)
+    moved32 = step_difference(reordered32, single32, init)
+    phase(13, f"(a) world of one over {backend} ({info}): data-parallel train_step at phase 8's "
+              f"operating point (d0 {h}x{w}, batch {cfg.batch_size}, bf16, KITTI MC + loss "
+              f"attenuation) vs the single process from the same weights and batch, cuDNN "
+              f"deterministic: {line} (single process twice: {repeat}); {world1[2]:.1f} ms "
+              f"(single process {again[2]:.1f} ms, its first call {single[2]:.1f} ms; phase 8: "
+              f"{ms_step:.1f} ms/step). The single process's step on the batch's rows "
+              f"reordered, each image keeping its masks: bf16 loss {moved[0]:.3g}, update "
+              f"{moved[1]:.3g} relative L2 away; f32 (TF32 off) loss {moved32[0]:.3g}, update "
+              f"{moved32[1]:.3g} away; the f32 step, (b)'s f32 reference: "
+              f"{single32[2]:.1f} ms, loss {single32[0]['loss']:.4f}; {smi}")
+
+    server = ServingDriver.create("efficientdet-d0", overrides={**MAIN_PATH, **(extra or {})},
+                                  batch_size=BATCH, seed=0, device=dev)
+    images = np.random.RandomState(2).randint(0, 256, (pool, h, w, 3)).astype(np.uint8)
+    got, ms_sharded, first, launches = timed_serves(lambda: server.serve_sharded(mesh, images),
+                                                    dev)
+    calls = SERVE_CALLS * pool // BATCH
+    if dev.type == "cuda" and launches != (calls, 15 * calls, calls):
+        raise AssertionError(f"serve_sharded: launches {launches} in {SERVE_CALLS} calls of "
+                             f"{pool // BATCH} batches, want 1/15/1 a batch")
+    ref = ServingDriver.create("efficientdet-d0", overrides={**MAIN_PATH, **(extra or {})},
+                               batch_size=BATCH, seed=0, device=dev)
+    for _ in range(SERVE_CALLS - 1):        # the same place in the mask sequence
+        for i in range(0, pool, BATCH):
+            ref.serve(images[i:i + BATCH])
+    want = [torch.cat(ts) for ts in zip(*(ref.serve(images[i:i + BATCH])
+                                          for i in range(0, pool, BATCH)))]
+    worst = matched_sets(got[:4], want[:4], "serve_sharded vs serve")
+    phase(13, f"(a) serve_sharded of {pool} images [{pool}, {h}, {w}, 3] at the main path's "
+              f"operating point (T=10, batch {BATCH}, bf16) = {pool // BATCH} serve calls as "
+              f"matched sets (largest score difference {worst:.3g}); launches in {SERVE_CALLS} "
+              f"calls {launches} (1/15/1 a batch); {ms_sharded:.1f} ms a call, "
+              f"{ms_sharded * BATCH / pool:.1f} ms a batch (phase 4: {ms_serve:.1f} ms/batch); "
+              f"first {first:.0f} ms; {smi}")
+
+    sp_server, single_server = (ServingDriver.create(
+        "efficientdet-d0", overrides={**MAIN_PATH, **(extra or {})}, seed=0, device=dev)
+        for _ in range(2))
+    got, ms_sp, _, launches = timed_serves(lambda: sp_server.serve_sample_parallel(mesh, raw),
+                                           dev)
+    for _ in range(SERVE_CALLS):
+        want = single_server.serve(raw)
+    worst = matched_sets(got[:4], want[:4], "serve_sample_parallel vs serve")
+    if dev.type == "cuda" and launches != per_serve(SERVE_CALLS):
+        raise AssertionError(f"serve_sample_parallel: launches {launches}, want 1/15/1 a call")
+    phase(13, f"(a) serve_sample_parallel T={t} on a world of one = serve under the same masks "
+              f"(largest score difference {worst:.3g}); launches {launches}; {ms_sp:.1f} ms "
+              f"a call (phase 4's serve: {ms_serve:.1f} ms); {smi}")
+    dist.destroy_process_group()
+    del server, ref, sp_server, single_server, got, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) two processes on the card over gloo
+    t0 = time.perf_counter()
+    spawn_world(phase13_rank, 2, str(dev), extra, batch, raw, device=str(dev), backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(PARALLEL_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    want = None
+    for r, out in enumerate(ranks):
+        dp = check_step(f"phase 13 (b) rank {r} bf16 data-parallel step at world 2 vs (a)",
+                        step_difference(out["dp"], single, init), STEP_TOL_BF16)
+        tp = check_step(f"phase 13 (b) rank {r} bf16 tensor-parallel step vs (a)",
+                        step_difference(out["tp"], single, init), STEP_TOL_BF16)
+        tp_dp = check_step(f"phase 13 (b) rank {r} bf16 tensor- vs data-parallel",
+                           step_difference(out["tp"], out["dp"], init), STEP_TOL_BF16)
+        dp32 = check_step(f"phase 13 (b) rank {r} f32 data-parallel step at world 2",
+                          step_difference(out["dp32"], single32, init), STEP_TOL_B)
+        tp32 = check_step(f"phase 13 (b) rank {r} f32 tensor-parallel step at n_model 2",
+                          step_difference(out["tp32"], single32, init), STEP_TOL_B)
+        tp_dp32 = check_step(f"phase 13 (b) rank {r} f32 tensor- vs data-parallel",
+                             step_difference(out["tp32"], out["dp32"], init), STEP_TOL_B)
+        calls = "; ".join(
+            f"{key} step {c['step_ms']:.1f} ms with each collective synchronised, of which "
+            f"{c['calls']} collectives {c['ms']:.1f} ms ({c['ms'] / c['calls']:.3f} ms a call, "
+            f"{c['bytes'] / 2**20:.1f} MiB)"
+            for key, c in (("data-parallel", out["dp_collectives"]),
+                           ("tensor-parallel", out["tp_collectives"])))
+        phase(13, f"(b) rank {r} of 2 over gloo on {dev} (gloo's own collectives on CUDA "
+                  f"tensors: {out['gloo_cuda'] or 'n/a on the CPU'}): bf16 data-parallel step, "
+                  f"4 rows a rank, vs (a)'s step: {dp}, {out['dp'][2]:.1f} ms; bf16 "
+                  f"tensor-parallel step (n_model 2) vs (a)'s: {tp}, vs the data-parallel "
+                  f"step: {tp_dp}, {out['tp'][2]:.1f} ms; in f32 vs the single process's f32 "
+                  f"step: data-parallel {dp32}, {out['dp32'][2]:.1f} ms; tensor-parallel "
+                  f"{tp32}, vs data-parallel {tp_dp32}, {out['tp32'][2]:.1f} ms; {calls}; "
+                  f"parameter + optimizer-state bytes a rank (bf16 steps): "
+                  f"tensor-parallel {out['tp'][3] / 2**20:.1f} MiB, data-parallel "
+                  f"{out['dp'][3] / 2**20:.1f} MiB ({out['tp'][3] / out['dp'][3]:.1%}); {smi}")
+        if not out["tp"][3] < 0.75 * out["dp"][3]:
+            raise AssertionError(f"rank {r}: tensor-parallel state {out['tp'][3]} bytes, "
+                                 f"data-parallel {out['dp'][3]}")
+        packed_r, ms_r, launches = out["sample"]
+        if want is None:
+            want, split_maps = split_sample_reference(extra, dev, raw)
+            ref = ServingDriver.create("efficientdet-d0", overrides={**MAIN_PATH, **(extra or {})},
+                                       seed=0, device=dev)
+            ref.serve(raw)                   # the rank's warm-up serve came first
+            with torch.inference_mode():
+                images, scales = ref._raw(raw)
+                whole = ref._forward(images.to(ref.dtype))
+            whole_diff = maps_difference(split_maps, whole)
+            wrong_diff = maps_difference(split_maps, whole, t // 2)
+            del ref, whole, split_maps
+            if max(whole_diff) > WHOLE_TOL or max(wrong_diff) <= WHOLE_TOL:
+                raise AssertionError(f"the split samples' maps differ from serve's T={t} "
+                                     f"forward by {whole_diff} of their largest (tolerance "
+                                     f"{WHOLE_TOL:.3g}); a wrong block of samples would "
+                                     f"differ by {wrong_diff}, which must exceed it")
+        worst = matched_sets(packed_r[:4], want[:4],
+                             f"rank {r} serve_sample_parallel vs the split samples in one process")
+        if dev.type == "cuda" and launches != (1, 15, 1):
+            raise AssertionError(f"rank {r}: serve_sample_parallel launches {launches}, "
+                                 f"want 1/15/1")
+        phase(13, f"(b) rank {r} serve_sample_parallel, {t // 2} of T={t} samples a rank = the "
+                  f"same samples ({t // 2} a forward, as on the ranks) served in one process, "
+                  f"as matched sets (largest score difference {worst:.3g}); against serve's "
+                  f"single T={t} forward, under the masks of one plain mask source, the per-sample maps "
+                  f"differ by {whole_diff[0]:.3g} (class) and {whole_diff[1]:.3g} (box) of "
+                  f"their largest (tolerance {WHOLE_TOL:.3g}; the other rank's block of "
+                  f"samples would differ by {wrong_diff[0]:.3g} and {wrong_diff[1]:.3g}); "
+                  f"launches {launches}; {ms_r:.1f} ms; {smi}")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    phase(13, f"(b) two processes spawned and joined in {spawn_s:.1f} s; phase 13 took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -2217,7 +2691,7 @@ def main():
         raise AssertionError("non-finite detections")
     if int(out[3].max()) <= 0:
         raise AssertionError("no detections at full width")
-    ms = statistics.median(walls[1:]) * 1e3
+    ms_serve = ms = statistics.median(walls[1:]) * 1e3
     phase(4, f"d0 1024x512 T=10 B={BATCH} bf16: packed {shapes}, valid_len "
              f"{out[3].tolist()}; launches in {SERVE_CALLS} calls: fused_dw {launches[0]} "
              f"(fast path {fused_dw.path_launches['fast']}), "
@@ -2240,7 +2714,9 @@ def main():
              f"plain version at the tool's shapes passed, max abs err {packed_err} "
              f"({time.perf_counter() - t0:.1f} s)")
     reset_counts()
-    bench = {r["case"]: r["graph_ms"] for r in perf_packed.main(list(perf_packed.CASES))}
+    bench_rows = perf_packed.main(list(perf_packed.CASES))
+    bench = {r["case"]: r["graph_ms"] for r in bench_rows}
+    conv_kernels = next(r["cuda_kernels"] for r in bench_rows if "cuda_kernels" in r)
     calls = perf_packed.WARMUP + perf_packed.RUNS + 1
     want = {name: calls for name in packed.launches}
     want["packed_pointwise"] = calls * (1 + len(perf_packed.M_TILES))
@@ -2255,6 +2731,13 @@ def main():
              f"operands {bench['matmul_pw_128x256x24to144']:.4f} ms (a2's "
              f"{bench['packed_pw_torch_matmul_bf16out']:.4f}); {sweep} (medians of "
              f"{perf_packed.RUNS} CUDA-graph replays); {smi}")
+    phase(6, f"library calls beside B5 and B8: packed_wshift "
+             f"{bench['packed_wshift_128x32x1152']:.4f} ms vs F.pad of the unpacked view "
+             f"{bench['pad_packed_wshift_128x32x1152']:.4f} ms; packed_dw_w3 "
+             f"{bench['p2_packed_dwW_128x32x1152']:.4f} ms vs the depthwise F.conv2d (groups=C, "
+             f"channels-last, contiguous weight, cuDNN benchmark mode) "
+             f"{bench['conv_p2_packed_dwW_128x32x1152']:.4f} ms, launching {conv_kernels} "
+             f"(CUDA-graph replay medians); {smi}")
     rounds = perf_packed.p1_rounds(dev)
     p1 = {case: statistics.median(ms) for case, ms in rounds.items()}
     p1_bytes = 4096 * perf_packed.N // 8 * perf_packed.G * perf_packed.CI * 2
@@ -2275,7 +2758,7 @@ def main():
 
     # -- 8. training at KITTI's operating point, full width -------------------
     t0 = time.perf_counter()
-    phase8(dev, smi, "--profile" in sys.argv[1:])
+    ms_step = phase8(dev, smi, "--profile" in sys.argv[1:])
     phase(8, f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 9. calibrate, threshold, auto-label and validate at full width -------
@@ -2297,6 +2780,10 @@ def main():
     t0 = time.perf_counter()
     phase12(dev, smi)
     phase(12, f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. multi-GPU: the port over torch.distributed ------------------------
+    torch.cuda.empty_cache()
+    phase13(dev, smi, ms_serve, ms_step)
 
     kernel_ms, plain_ms = times["gaussian"]
     # soft-NMS: boxes and scores in, picks out; ~20 f32 operations per
@@ -2320,7 +2807,9 @@ def main():
     # rows 6-7 (and x + 1, their plain version and library call): the 5-round medians
     bench.update(p1)
     library = {"packed_pointwise": bench["matmul_pw_128x256x24to144"],
-               "add_one_natural": p1["p1_plain"], "add_one_packed": p1["p1_plain"]}
+               "packed_wshift": bench["pad_packed_wshift_128x32x1152"],
+               "add_one_natural": p1["p1_plain"], "add_one_packed": p1["p1_plain"],
+               "packed_dw_w3": bench["conv_p2_packed_dwW_128x32x1152"]}
     rows = [{"name": "soft_nms", "route": "cuda", "source": "udal_tpu_torch/csrc/soft_nms.cu",
              "replaces": "udal_tpu/ops/pallas_nms.py:36", "launches": launches[2],
              "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}]

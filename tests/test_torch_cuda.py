@@ -943,3 +943,69 @@ def test_collect_pool_on_the_card_launches_each_kernel_per_batch(no_tf32):
         np.testing.assert_allclose(np.sort(pool.feats["det_score"][i][pool.mask[i]]),
                                    np.sort(host.feats["det_score"][i][host.mask[i]]),
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_world_of_one_over_nccl_trains_and_serves_as_one_process(no_tf32):
+    """``chip_smoke.py`` phase 13 (a) at the small config: in a world of
+    one over NCCL (a TCP store on 127.0.0.1) the data-parallel step equals
+    the single process's (MC dropout, cuDNN deterministic: values to 1e-6
+    relative, gradients' tree to 1e-6 relative L2), ``serve_sharded`` of 4
+    images in batches of 2 equals two ``serve`` calls (1/15/1 launches a
+    batch) and ``serve_sample_parallel`` equals ``serve`` under the same
+    masks (1/15/1)."""
+    import torch.distributed as dist
+
+    from udal_tpu_torch.models.efficientnet import ChannelDropout
+    from udal_tpu_torch.parallel.dryrun import free_port
+    from udal_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, replicate_state
+    from udal_tpu_torch.train import train_lib
+
+    extra = dict(mc_dropout=True, mc_dropoutrate=0.05, mc_dropoutsamp=2)
+
+    def step(mesh=None):
+        cfg, state, schedule = train_state(no_tf32, **extra)
+        if mesh is not None:
+            replicate_state(mesh, state)
+        _, vals = train_lib.train_step(cfg, schedule, 10, state, *train_batch(5))
+        return ({k: float(v) for k, v in vals.items()},
+                {n: p.grad.detach().float().cpu() for n, p in state.model.named_parameters()})
+
+    def driver():
+        d = small_driver(no_tf32, extra, batch_size=2)
+        d.masks = ChannelDropout(torch.Generator(device=no_tf32).manual_seed(6))
+        return d
+
+    frames = np.random.RandomState(10).randint(0, 256, (4, 96, 160, 3)).astype(np.uint8)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    info = None
+    try:
+        want_vals, want = step()
+        info = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=no_tf32)
+        assert dist.get_backend() == "nccl" and info["process_count"] == 1
+        mesh = make_mesh(device=no_tf32)
+        got_vals, got = step(mesh)
+        for k, v in want_vals.items():
+            assert abs(got_vals[k] - v) <= 1e-6 * abs(v) + 1e-9, k
+        assert tree_relative_l2(got, want) <= 1e-6
+
+        before = kernel_counts()
+        sharded = driver().serve_sharded(mesh, frames)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (2, 30, 2)
+        ref = driver()
+        parts = [ref.serve(frames[:2]), ref.serve(frames[2:])]
+        for g, w in zip(sharded, (torch.cat(ts) for ts in zip(*parts))):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+        before = kernel_counts()
+        sample = driver().serve_sample_parallel(mesh, frames[:2])
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (1, 15, 1)
+        for g, w in zip(sample, driver().serve(frames[:2])):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if info is not None:
+            dist.destroy_process_group()

@@ -133,16 +133,19 @@ def test_augmentation_active_and_semi_supervised_learning_import_nothing_the_car
 
 
 def test_image_artifacts_and_profiling_import_nothing_the_card_lacks():
-    """The drawing (``cv_ops``' rectangle and text size, ``visualize``), the
+    """The drawing (``cv_ops``' rectangle, text size and text, the glyph
+    table, ``visualize``), the
     figures' numbers, the GT plots, profiling and the apps that write
     their artifacts load with none of JAX, flax, yaml, the JAX package,
     sklearn, cv2, PIL or matplotlib."""
     code = ("import sys, udal_tpu_torch.utils.visualize as vis, "
             "udal_tpu_torch.utils.uncert_plots as up, udal_tpu_torch.utils.profiling as prof, "
             "udal_tpu_torch.data.plot_gt as pg, udal_tpu_torch.ops.text_metrics, "
+            "udal_tpu_torch.ops.text_glyphs as tg, "
             "udal_tpu_torch.apps.infer as i, udal_tpu_torch.apps.uncertainty_analysis as ua, "
             "udal_tpu_torch.train.callbacks as cb; "
-            "from udal_tpu_torch.ops.cv_ops import rectangle, get_text_size, gaussian_blur_f64; "
+            "from udal_tpu_torch.ops.cv_ops import rectangle, get_text_size, put_text, "
+            "gaussian_blur_f64; tg.coverage(0.4); "
             "[vis.visualize_boxes_and_labels, vis.overlay_panels, vis.contact_sheet, "
             "vis.draw_detection_grid, up.reliability_diagram, up.brisque_like_score, "
             "up.top10_panel, prof.trace, prof.device_memory_stats, pg.plot_tfrecord_groundtruth, "
@@ -152,7 +155,33 @@ def test_image_artifacts_and_profiling_import_nothing_the_card_lacks():
                          cwd=PORT.parent, check=True).stdout.split()
     for module in ("torch", "udal_tpu_torch.utils.visualize",
                    "udal_tpu_torch.utils.uncert_plots", "udal_tpu_torch.utils.profiling",
-                   "udal_tpu_torch.data.plot_gt", "udal_tpu_torch.ops.text_metrics"):
+                   "udal_tpu_torch.data.plot_gt", "udal_tpu_torch.ops.text_metrics",
+                   "udal_tpu_torch.ops.text_glyphs"):
+        assert module in out
+    assert [m for m in out if _forbidden(m) or m.startswith("tensorflow")] == []
+
+
+def test_parallel_modules_import_nothing_the_card_lacks():
+    """The mesh, its collectives, tensor parallelism and the dry run, with
+    the entries that reach them (the sharded serves, the multi-process CLI),
+    load with none of JAX, flax, yaml, the JAX package, sklearn, cv2, PIL
+    or matplotlib."""
+    code = ("import sys, udal_tpu_torch.parallel.mesh as m, "
+            "udal_tpu_torch.parallel.collectives as c, "
+            "udal_tpu_torch.parallel.tensor_parallel as tp, "
+            "udal_tpu_torch.parallel.dryrun as d, udal_tpu_torch.apps.serving as s, "
+            "udal_tpu_torch.cli as cli; "
+            "[m.initialize_multihost, m.make_mesh, m.make_multihost_mesh, m.shard_batch, "
+            "m.replicate_state, m.cross_replica_mean_groups, m.grouped_batch_stats, "
+            "m.param_partition_spec, m.shard_params_tp, m.shard_opt_state_tp, "
+            "m.shard_state_tp, c.all_reduce_sum, c.gather_replicated, c.copy_to_group, "
+            "tp.TensorParallel, d.dryrun_multichip, d.spawn_world, "
+            "s.ServingDriver.serve_sharded, s.ServingDriver.serve_sample_parallel]; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PORT.parent, check=True).stdout.split()
+    for module in ("torch", "torch.distributed", "udal_tpu_torch.parallel.mesh",
+                   "udal_tpu_torch.parallel.tensor_parallel", "udal_tpu_torch.parallel.dryrun"):
         assert module in out
     assert [m for m in out if _forbidden(m) or m.startswith("tensorflow")] == []
 

@@ -200,8 +200,9 @@ def test_tool_block_diag_weight_is_the_scripts(jax_probe):
 
 def test_tool_check_passes_on_the_cpu(monkeypatch, capsys):
     """``check --cpu`` at N = 8 holds the plain versions against the
-    script's references and asserts (ROADMAP C6); B6 and B7 return the
-    input's rows (C5). No kernel runs on the CPU."""
+    script's references and asserts (ROADMAP C6), and the library calls
+    timed beside B5 and B8 against their plain versions; B6 and B7 return
+    the input's rows (C5). No kernel runs on the CPU."""
     monkeypatch.setattr(port_tool, "N", 8)
     before = dict(packed.launches)
     assert port_tool.main(["check", "--cpu"]) == {}
@@ -209,7 +210,7 @@ def test_tool_check_passes_on_the_cpu(monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     cases = [line.split('"case": "')[1].split('"')[0] for line in lines]
     assert cases == ["a1_pw_check", "a1_roll_check", "a1_roll_check_neg", "p1_check",
-                     "p1_copy_check", "p2_check"]
+                     "p1_copy_check", "p2_check", "library_check"]
     assert '"rows": 1024' in lines[3]
 
 

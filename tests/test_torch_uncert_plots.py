@@ -138,9 +138,10 @@ def test_spider_heatmap_and_top10_write_their_numbers(tmp_path):
     np.testing.assert_array_equal(heat["matrix"], m)
     rng = np.random.RandomState(2)
     images = [rng.randint(0, 256, (30, 40, 3)).astype(np.uint8) for _ in range(7)]
-    path = plots.top10_panel(images, [str(i) for i in range(7)], str(tmp_path / "top.png"))
+    labels = [str(i) for i in range(7)]
+    path = plots.top10_panel(images, labels, str(tmp_path / "top.png"))
     np.testing.assert_array_equal(decode_image(open(path, "rb").read()),
-                                  contact_sheet(images, cols=5))
+                                  contact_sheet(images, cols=5, labels=labels))
 
 
 @pytest.mark.parametrize("shape", [(37, 53, 3), (16, 9), (1, 5, 3)])

@@ -16,9 +16,9 @@ artifacts run in numpy:
   kind under ``uncert/``);
 * with ``save_visualizations``: each image's detection overlay and one
   panel per decoded uncertainty (``visualizations/<stem>{,_mean_albox,
-  _mean_epbox,_max_epcls,_entropy}.png``, drawn by ``utils.visualize``
-  without the labels' text), and in each per-kind bucket a copy of its
-  images' overlays and their ``contact_sheet.png``. The overlays are drawn
+  _mean_epbox,_max_epcls,_entropy}.png``, drawn by ``utils.visualize``),
+  and in each per-kind bucket a copy of its images' overlays and their
+  captioned ``contact_sheet.png``. The overlays are drawn
   on the batch's own pixels: native uint8 frames as they are, resized or
   normalised ones (mapped back to uint8) with the boxes divided by the
   image's scale.

@@ -31,11 +31,12 @@ import torch
 from udal_tpu_torch.config import Config, get_detection_config, parse_image_size
 from udal_tpu_torch.models.efficientdet import (EfficientDetNet, init_flax_style,
                                                 mc_forward, preprocess_images)
-from udal_tpu_torch.models.efficientnet import ChannelDropout
+from udal_tpu_torch.models.efficientnet import ChannelDropout, ShardedDropout
 from udal_tpu_torch.models.ensemble import (ensemble_forward, stack_variables,
                                             unstack_variables)
 from udal_tpu_torch.ops.image_ops import warp_resize_batch
 from udal_tpu_torch.ops.postprocess import Detections, postprocess_global
+from udal_tpu_torch.parallel.collectives import all_gather
 
 
 class ServingDriver:
@@ -115,17 +116,26 @@ class ServingDriver:
 
     # -- core program --------------------------------------------------------
 
-    def _forward(self, images: torch.Tensor):
+    def _mc(self) -> bool:
+        cfg = self.config
+        return bool(cfg.mc_dropout and (cfg.mc_dropoutrate or cfg.mc_classheadrate or
+                                        cfg.mc_boxheadrate))
+
+    def _forward(self, images: torch.Tensor, masks=None, members=None, samples=None):
+        """The network's outputs: the ensemble's ``members`` (all by
+        default), or ``samples`` MC samples (the config's T by default) with
+        dropout from ``masks`` (the driver's source by default), or one
+        deterministic pass."""
         cfg = self.config
         if self.ensemble:
-            return ensemble_forward(self.members, images)
-        if cfg.mc_dropout and (cfg.mc_dropoutrate or cfg.mc_classheadrate or
-                               cfg.mc_boxheadrate):
-            return mc_forward(self.model, images, cfg.mc_dropoutsamp, self.masks)
+            return ensemble_forward(self.members if members is None else members, images)
+        if self._mc():
+            return mc_forward(self.model, images, samples or cfg.mc_dropoutsamp,
+                              self.masks if masks is None else masks)
         return self.model(images)
 
-    def _detect(self, images: torch.Tensor, scales: torch.Tensor) -> Detections:
-        outs = self._forward(images.to(self.dtype))
+    def _detect(self, images: torch.Tensor, scales: torch.Tensor, masks=None) -> Detections:
+        outs = self._forward(images.to(self.dtype), masks)
         return postprocess_global(self.config, outs[0], outs[1], image_scales=scales)
 
     def _raw(self, raw_images) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,6 +224,54 @@ class ServingDriver:
         with torch.inference_mode():
             return self._detect(*self._dispatch_uint8(images_u8, valid_hw, image_scales,
                                                       warp_scale, warp_offset))
+
+    # -- over a mesh ----------------------------------------------------------
+
+    def serve_sharded(self, mesh, raw_images) -> Tuple[torch.Tensor, ...]:
+        """Serve a pool-sized batch sharded over the mesh's 'data' axis (the
+        AL / SSL pool-scoring layout): every rank holds the weights, takes
+        its rows of ``raw_images`` (``Mesh.data_rows``) and serves them
+        through the eval path in batches of ``batch_size``; the packed
+        tuples are gathered over the data group, so every rank returns the
+        whole pool's. The MC masks of each batch are drawn for the rows of
+        every rank and cut to this rank's (``ShardedDropout``), so a world
+        of one serves what ``serve`` of the same batches serves."""
+        rows = mesh.data_rows(len(raw_images))
+        local = raw_images[rows]
+        samples = self.config.mc_dropoutsamp if self._mc() and not self.ensemble else 1
+        masks = ShardedDropout(self.masks, mesh.data_index, mesh.shape["data"], samples)
+        step = max(1, int(self.batch_size))
+        with torch.inference_mode():
+            parts = [self._detect(*self._raw(local[i:i + step]), masks=masks).packed()
+                     for i in range(0, len(local), step)]
+            return tuple(all_gather(torch.cat(ts), mesh.data_group) for ts in zip(*parts))
+
+    def serve_sample_parallel(self, mesh, raw_images) -> Tuple[torch.Tensor, ...]:
+        """Latency-oriented MC serving: the batch replicated, the T MC
+        samples (or the N ensemble members) split over the mesh's 'data'
+        axis. Rank r runs the shared prefix once and the samples [r·T/n,
+        (r+1)·T/n) of the single mask sequence (``ShardedDropout``); the
+        T-moments are all-reduced in the post-processing
+        (``postprocess_global(sample_group=...)``), so every rank selects
+        and suppresses on the same moments and returns the same packed
+        tuple. Requires T divisible by the axis."""
+        n, r = mesh.shape["data"], mesh.data_index
+        n_samples = self.num_members if self.ensemble else int(self.config.mc_dropoutsamp)
+        if n_samples % n != 0:
+            raise ValueError(
+                f"serve_sample_parallel requires the sample axis "
+                f"({n_samples}) divisible by the mesh 'data' axis "
+                f"({n})")
+        per = n_samples // n
+        with torch.inference_mode():
+            images, scales = self._raw(raw_images)
+            images = images.to(self.dtype)
+            if not (self.ensemble or self._mc()):
+                return self._detect(images, scales).packed()
+            outs = self._forward(images, ShardedDropout(self.masks, r, n),
+                                 self.members[r * per:(r + 1) * per], per)
+            return postprocess_global(self.config, outs[0], outs[1], image_scales=scales,
+                                      sample_group=mesh.data_group).packed()
 
     # -- benchmark ------------------------------------------------------------
 

@@ -5,7 +5,13 @@ Port of ``udal_tpu/cli.py`` with its flags and defaults:
 * ``python -m udal_tpu_torch.cli train``: the input reader over TFRecords,
   ``train.loop.train_and_evaluate`` (validation loss, the COCO AP every
   ``map_freq`` epochs, checkpoints in the port's format under
-  ``--model_dir``), ``config.yaml`` written beside them;
+  ``--model_dir``), ``config.yaml`` written beside them. Under
+  ``torchrun --nproc_per_node N -m udal_tpu_torch.cli train ...`` every
+  process joins the group (``parallel.mesh.initialize_multihost``) and
+  trains its share: ``--batch_size`` is the global batch, each data rank
+  reads its shard of the records at ``batch_size / n_data`` a step, and
+  ``--n_model`` ranks to a model group shard the state (tensor
+  parallelism);
 * ``train_ssl``: the labelled and unlabelled readers zipped into one batch;
 * ``eval``: COCO evaluation (and the detections' ECE) of a checkpoint over a
   TFRecord, through ``ServingDriver``;
@@ -23,7 +29,7 @@ JAX. ``--device`` (default ``cuda``) says where the model runs.
 
 Not ported, each refused with the reason: ``--tf_checkpoint`` (TF
 checkpoints go TF → flax → torch), ``--compile_cache`` (XLA's cache),
-``--n_model`` > 1 (ROADMAP A11), ``inspect --mode export`` (StableHLO) and
+``inspect --mode export`` (StableHLO) and
 ``--mode video`` (cv2's video I/O); the ``parity_kitti`` command.
 """
 
@@ -60,9 +66,23 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--tf_checkpoint: TF checkpoints are not read by the port (ROADMAP, "
                          "'Not to port': utils/tf_checkpoint.py); load it into flax with "
                          "udal_tpu and convert with udal_tpu_torch.convert on a machine with JAX")
-    if getattr(args, "n_model", 1) > 1:
-        raise SystemExit("--n_model > 1: tensor-parallel training is not ported yet "
-                         "(ROADMAP A11, multi-GPU)")
+
+
+def _train_mesh(args):
+    """The training mesh: the process group joined from torchrun's
+    environment (none outside torchrun: a world of one), ``--n_model``
+    ranks to a model group; None for one process at ``--n_model 1``."""
+    from udal_tpu_torch.parallel.mesh import initialize_multihost, make_multihost_mesh
+
+    info = initialize_multihost(device=args.device)
+    if info["process_count"] == 1 and args.n_model == 1:
+        return None
+    if info["process_count"] % args.n_model:
+        raise SystemExit(f"--n_model {args.n_model}: tensor-parallel training (ROADMAP A11) "
+                         f"needs a multiple of {args.n_model} processes, and this run has "
+                         f"{info['process_count']}; launch it with torchrun --nproc_per_node "
+                         f"<N> -m udal_tpu_torch.cli train ...")
+    return make_multihost_mesh(args.n_model, device=args.device)
 
 
 def _restore_weights(args, config):
@@ -88,6 +108,11 @@ def cmd_train(args):
 
     _refuse_unported(args)
     config = config_from_args(args)
+    if args.n_model > 1:
+        config.override({"n_model": args.n_model}, allow_new_keys=True)
+    mesh = _train_mesh(args)
+    # each data rank reads its shard of the records (default_shard of n_model)
+    local_batch = args.batch_size // (mesh.shape["data"] if mesh is not None else 1)
     fast, dev_rs = _fast_reader_flags(args)
     reader = InputReader(args.train_file_pattern, is_training=True,
                          use_fake_data=args.use_fake_data,
@@ -95,7 +120,7 @@ def cmd_train(args):
                          fast_input=fast, num_proc=args.input_procs,
                          device_resize=dev_rs)
     steps = args.steps_per_epoch or max(1, args.num_examples_per_epoch // args.batch_size)
-    train_iter = reader(config, args.batch_size)
+    train_iter = reader(config, local_batch)
 
     val_iter_fn = None
     val_steps = 0
@@ -104,14 +129,15 @@ def cmd_train(args):
         val_steps = max(1, args.eval_samples // args.batch_size)
 
         def val_iter_fn():
-            return val_reader(config, args.batch_size)
+            return val_reader(config, local_batch)
 
     os.makedirs(args.model_dir, exist_ok=True)
-    config.save_to_yaml(os.path.join(args.model_dir, "config.yaml"))
+    if mesh is None or mesh.rank == 0:
+        config.save_to_yaml(os.path.join(args.model_dir, "config.yaml"))
     try:
         history = train_and_evaluate(config, train_iter, steps, args.model_dir,
                                      val_iter_fn=val_iter_fn, val_steps=val_steps,
-                                     seed=args.seed, device=args.device)
+                                     seed=args.seed, device=args.device, mesh=mesh)
     finally:
         train_iter.close()
     history["input_wait"] = reader.wait_stats()
@@ -372,7 +398,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--steps_per_epoch", type=int, default=None)
     t.add_argument("--use_fake_data", action="store_true")
     t.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel width (> 1 not ported: ROADMAP A11)")
+                   help="tensor-parallel width: ranks to a model group (under torchrun)")
     t.add_argument("--seed", type=int, default=0,
                    help="init/dropout seed (vary per deep-ensemble member)")
     t.add_argument("--fast_input", action="store_true",

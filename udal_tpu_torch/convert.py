@@ -282,3 +282,13 @@ def calibrators_from_jax(src_dir: str, dst_dir: str) -> Tuple[Dict[str, Any], Di
                 out[i][name.replace(f"{sub}_", "", 1)] = _calibrator_from_jax(pickle.load(f))
     save_calibrators(dst_dir, *out)
     return out
+
+
+def flax_last_axis(name: str, ndim: int) -> int:
+    """The dim of the port's tensor ``name`` (of ``ndim`` dims) that holds
+    its flax leaf's last axis, as ``flax_to_torch`` lays it out: 1 for the
+    segmentation head's transposed-conv kernels ([in, out, k, k]), 0 for
+    every other kernel (OIHW), bias, edge weight and BatchNorm vector."""
+    if ndim == 4 and name.startswith("seg_head.") and name.endswith(".weight"):
+        return 1
+    return 0

@@ -181,11 +181,14 @@ def denormalize_image(images: np.ndarray, mean_rgb, stddev_rgb) -> np.ndarray:
     return np.clip(np.round(x), 0, 255).astype(np.uint8)
 
 
-def default_shard() -> Tuple[int, int]:
-    """(rank, world size) of the initialised ``torch.distributed`` process
-    group, else (0, 1)."""
+def default_shard(n_model: int = 1) -> Tuple[int, int]:
+    """(data rank, data-axis size) of this process in the initialised
+    ``torch.distributed`` process group laid out as a mesh of ``n_model``
+    ranks to a model group (``parallel.mesh``: rank d·n_model + m), else
+    (0, 1): the ranks of one model group read the same records."""
     if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank(), torch.distributed.get_world_size()
+        return (torch.distributed.get_rank() // n_model,
+                torch.distributed.get_world_size() // n_model)
     return 0, 1
 
 
@@ -237,7 +240,8 @@ class InputReader:
     device_put: copy each batch to ``device`` (default ``cuda``) on the
       producer thread, from pinned memory with ``non_blocking`` copies.
     shard_id / num_shards: read the strided subset
-      ``records[shard_id::num_shards]``; default: ``default_shard()``.
+      ``records[shard_id::num_shards]``; default: ``default_shard`` of
+      the config's ``n_model``.
     fast_input: resized uint8 images and compact groundtruth.
     num_proc: > 0 runs that many worker processes (``data.mp_loader``),
       each producing its round-robin share of the batches; every worker
@@ -273,6 +277,7 @@ class InputReader:
         self._device = torch.device(device if device is not None else "cuda")
         self._shard_id = shard_id
         self._num_shards = num_shards
+        self._n_model = 1
         self._fast_input = fast_input
         self._num_proc = num_proc
         self._device_resize = device_resize
@@ -376,6 +381,7 @@ class InputReader:
         With ``prefetch > 0`` a producer thread fills a bounded queue (and
         copies to the device with ``device_put``); with ``num_proc > 0``
         the decoding runs in that many worker processes."""
+        self._n_model = int(config.get("n_model", 1) or 1)
         if self._device_resize and self._native_hw is None:
             # lock the native canvas before any worker runs, from the first
             # sharded record, so every thread and process agrees on it
@@ -388,7 +394,7 @@ class InputReader:
 
             if self._shard_id is None and self._num_shards is None:
                 # resolved in the parent: workers start with no process group
-                self._shard_id, self._num_shards = default_shard()
+                self._shard_id, self._num_shards = default_shard(self._n_model)
             source = MultiProcessProducer(self, config, batch_size,
                                           num_proc=self._num_proc,
                                           prefetch=max(1, self._prefetch))
@@ -461,7 +467,7 @@ class InputReader:
         if self._shard_id is not None or self._num_shards is not None:
             shard_id, num_shards = self._shard_id or 0, self._num_shards or 1
         else:
-            shard_id, num_shards = default_shard()
+            shard_id, num_shards = default_shard(self._n_model)
         if num_shards > 1:
             order = order[shard_id::num_shards]
         return order

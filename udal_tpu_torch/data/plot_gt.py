@@ -1,12 +1,12 @@
 """Groundtruth boxes drawn over a TFRecord shard's frames.
 
 Port of ``udal_tpu/data/plot_gt.py``: each frame of the shard with its
-groundtruth boxes drawn (``utils.visualize``, labels without their text)
+groundtruth boxes and labels drawn (``utils.visualize``)
 and written as an RGB PNG (``data.image_codec.write_png``) named by the
 frame's file name, or ``<source_id>.png``. The JAX package writes with
 cv2, which picks the format from the extension; the port encodes PNG
 only, so a frame named ``*.jpg`` is written as ``<stem>.png`` (ROADMAP
-C16).
+A13).
 """
 
 from __future__ import annotations

@@ -33,6 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from udal_tpu_torch.parallel import collectives
+from udal_tpu_torch.parallel.collectives import all_reduce_sum, copy_to_group, gather_replicated
+
 # Standard EfficientNet architecture notation (public, from the paper repos).
 DEFAULT_BLOCKS_ARGS = [
     "r1_k3_s11_e1_i32_o16_se0.25", "r2_k3_s22_e6_i16_o24_se0.25",
@@ -200,7 +203,16 @@ class BatchNorm(nn.Module):
     moves the running ones toward them, r = momentum·r + (1 − momentum)·batch.
     (``F.batch_norm(training=True)`` would move ``running_var`` toward the
     unbiased variance, n/(n − 1) times larger.) Built in eval mode, as the
-    JAX modules default to ``train=False``."""
+    JAX modules default to ``train=False``.
+
+    With a process ``group`` (``parallel.mesh.replicate_state`` sets the
+    mesh's data group; ``Mesh.batch_norm_group`` gives grouped moments),
+    train mode averages the ranks' means of x and x² (equal shards: the
+    whole batch's moments) by an all-reduce that carries autograd, and
+    normalises, and moves the running statistics, with them, as the JAX
+    package's GSPMD program computes them over the global batch
+    (``nn.SyncBatchNorm`` would move ``running_var`` toward the unbiased
+    variance again). A group of one computes what no group does."""
 
     def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
@@ -210,6 +222,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.group = None
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -217,8 +230,14 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+        if self.group is None:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+        else:       # the ranks' means of x and x² (equal shards), averaged
+            means = torch.stack([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
+            moments = all_reduce_sum(means, self.group) / collectives.size(self.group)
+            mean = moments[0]
+            var = torch.clamp_min(moments[1] - mean * mean, 0.0)
         with torch.no_grad():
             for running, batch in ((self.running_mean, mean), (self.running_var, var)):
                 running.mul_(self.momentum).add_(batch, alpha=1.0 - self.momentum)
@@ -235,7 +254,9 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d with TF "SAME" padding (explicit and uneven at stride 2)."""
+    """nn.Conv2d with TF "SAME" padding (explicit and uneven at stride 2). A
+    depthwise conv's groups follow its weight's channels: a channel-parallel
+    block (``MBConvBlock.tp``) holds a slice of them."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, groups: int = 1, bias: bool = True):
@@ -245,11 +266,11 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (ph0, ph1) = same_pads(x.shape[-2], self.kernel_size[0], self.stride[0])
         (pw0, pw1) = same_pads(x.shape[-1], self.kernel_size[1], self.stride[1])
+        groups = self.weight.shape[0] if self.groups > 1 else 1
         if ph0 == ph1 and pw0 == pw1:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (ph0, pw0), 1,
-                            self.groups)
+            return F.conv2d(x, self.weight, self.bias, self.stride, (ph0, pw0), 1, groups)
         return F.conv2d(F.pad(x, (pw0, pw1, ph0, ph1)), self.weight, self.bias,
-                        self.stride, 0, 1, self.groups)
+                        self.stride, 0, 1, groups)
 
 
 class ChannelDropout:
@@ -266,6 +287,24 @@ class ChannelDropout:
     def draw(self, n: int, c: int, keep: float, device) -> torch.Tensor:
         """Keep bits [n, c] (bool)."""
         return torch.rand((n, c), generator=self.generator, device=device) < keep
+
+
+class ShardedDropout:
+    """A mask source for one shard of a global batch: each draw takes the
+    masks of all ``count`` shards from ``source`` and keeps shard
+    ``index``'s rows, so every rank of a data-parallel step, a sharded serve
+    or a sample-parallel serve sees the masks a single process would draw
+    for the whole batch. A draw's rows are ``samples`` sample-major blocks
+    of the shard's rows (1 for a training step and for the sample axis
+    itself, T for an MC serve sharded by image)."""
+
+    def __init__(self, source, index: int, count: int, samples: int = 1):
+        self.source, self.index, self.count, self.samples = source, index, count, samples
+
+    def draw(self, n: int, c: int, keep: float, device) -> torch.Tensor:
+        bits = self.source.draw(n * self.count, c, keep, device)
+        rows = n // self.samples
+        return bits.view(self.samples, self.count, rows, c)[:, self.index].reshape(n, c)
 
 
 def dropout_mask(masks: Optional[ChannelDropout], n: int, c: int, rate: float,
@@ -346,6 +385,9 @@ class MBConvBlock(nn.Module):
         self.residual = (a.id_skip and all(s == 1 for s in a.strides)
                          and a.input_filters == a.output_filters)
         self.folded: Optional[Dict[str, torch.Tensor]] = None
+        # (model group, rank in it, its size) when the block's front half
+        # runs on a slice of its channels (parallel/tensor_parallel.py)
+        self.tp: Optional[Tuple[object, int, int]] = None
         self.eval()
 
     def fold(self) -> Dict[str, torch.Tensor]:
@@ -389,6 +431,8 @@ class MBConvBlock(nn.Module):
         """The JAX module's chain: expand → bn0 → act → dropout → depthwise
         → bn1 → act → dropout → SE → project → bn2 (→ drop_connect →
         residual), BatchNorm as the mode says. Train mode runs it."""
+        if self.tp is not None:
+            return self._forward_channel_parallel(x, masks)
         inputs = x
         rate = self.mc_dropoutrate
         if self.expand_conv is not None:
@@ -396,12 +440,47 @@ class MBConvBlock(nn.Module):
         x = spatial_dropout(self.act(self.bn1(self.depthwise_conv(x))), rate, masks)
         if self.se is not None:
             x = self.se(x, x.mean((2, 3)))
+        return self._tail(x, inputs, masks)
+
+    def _tail(self, x: torch.Tensor, inputs: torch.Tensor,
+              masks: Optional[ChannelDropout]) -> torch.Tensor:
         x = self.bn2(self.project_conv(x))
         if self.residual:
             if self.training and self.survival_prob:
                 x = drop_connect(x, self.survival_prob, masks)
             x = x + inputs
         return x
+
+    def _forward_channel_parallel(self, x: torch.Tensor,
+                                  masks: Optional[ChannelDropout]) -> torch.Tensor:
+        """The unfused chain with the front half on this rank's slice of
+        the expanded channels (``self.tp``): expand (or the input's
+        channels), bn0, act, dropout, depthwise, bn1, act, dropout and the
+        SE squeeze on the slice; the channels and the squeeze gathered
+        before the SE and the project conv, which every rank of the group
+        runs whole. Each dropout site draws the masks of every channel and
+        keeps the slice's columns, so the draws are a single process's."""
+        group, index, count = self.tp
+        inputs = x
+        rate = self.mc_dropoutrate
+        c = self.bn1.weight.shape[0]                 # channels on this rank
+        cols = slice(index * c, (index + 1) * c)
+
+        def dropout(h):
+            m = dropout_mask(masks, h.shape[0], c * count, rate, h.device)
+            return h if m is None else h * m[:, cols].to(h.dtype)[:, :, None, None]
+
+        h = copy_to_group(x, group)
+        if self.expand_conv is not None:
+            h = dropout(self.act(self.bn0(self.expand_conv(h))))
+        else:
+            h = h[:, cols]
+        h = dropout(self.act(self.bn1(self.depthwise_conv(h))))
+        pooled = gather_replicated(h.mean((2, 3)), group, 1)
+        h = gather_replicated(h, group, 1)
+        if self.se is not None:
+            h = self.se(h, pooled)
+        return self._tail(h, inputs, masks)
 
     def forward(self, x: torch.Tensor,
                 masks: Optional[ChannelDropout] = None) -> torch.Tensor:

@@ -15,11 +15,10 @@ has its counterpart here, held against cv2 5.0 in
   taps, ``calc_hist_3d``, ``gaussian_blur_f64`` at its default 7x7 and
   σ = 7/6, ``rectangle`` at every thickness (and ``ops.image_ops``'
   Gaussian blur of uint8 frames at every odd size);
-- exact: ``get_text_size`` of ``FONT_HERSHEY_SIMPLEX`` at thickness 1 and
-  the scales 0.4 and 0.45 (the drawing code's two; others raise). cv2 5.0
-  draws that font's glyphs from an antialiased outline font, which the
-  port does not carry, so there is no ``putText``: the callers leave the
-  label text out (ROADMAP C16);
+- exact: ``get_text_size`` and ``put_text`` of ``FONT_HERSHEY_SIMPLEX`` at
+  thickness 1 and the scales 0.4 and 0.45 (the drawing code's two; others
+  raise): cv2 5.0 draws that font from an antialiased outline font, whose
+  glyphs' coverage the port carries as measured (``ops.text_glyphs``);
 - within a bound: ``filter2d`` at 130 taps or more (cv2 takes its DFT
   there: off by at most 1 where the exact sum is a tie), ``draw_line``
   thicker than 1 (a capsule, where cv2 fills a polygon and two discs),
@@ -48,6 +47,7 @@ import numpy as np
 import torch
 
 from udal_tpu_torch.ops.image_ops import reflect101_index
+from udal_tpu_torch.ops import text_glyphs
 from udal_tpu_torch.ops.text_metrics import FIRST_CHAR, SIMPLEX
 
 Array = Union[np.ndarray, torch.Tensor]
@@ -767,21 +767,68 @@ def rectangle(canvas: np.ndarray, p1: Tuple[int, int], p2: Tuple[int, int], colo
         _fill(canvas, bx, by - 1, bx, by + 1, color)
 
 
+def _glyphs(text: str, scale: float, thickness: int, what: str):
+    """The table indices of ``text``'s characters as cv2 5.0 draws them
+    from its font: the text ends at a NUL, and a control character (other
+    than a newline) is drawn as "?". cv2 draws most of Unicode from its
+    font and lays out several lines by rules of its own; the port carries
+    printable ASCII's glyphs and draws one line, and raises on the rest."""
+    if thickness != 1 or scale not in SIMPLEX:
+        raise ValueError(f"{what} knows thickness 1 at scales {sorted(SIMPLEX)}, "
+                         f"got thickness {thickness}, scale {scale}")
+    text = text.split("\0", 1)[0]
+    codes = [ord("?") if (c < 32 and c != 10) or c == 127 else c for c in map(ord, text)]
+    bad = [chr(c) for c in codes if c == 10 or c > 126]
+    if bad:
+        raise ValueError(f"{what} draws one line of printable ASCII (control characters "
+                         f"as '?'), got {bad[0]!r} in {text!r}")
+    return [c - FIRST_CHAR for c in codes]
+
+
 def get_text_size(text: str, scale: float, thickness: int = 1) -> Tuple[Tuple[int, int], int]:
     """``cv2.getTextSize(text, FONT_HERSHEY_SIMPLEX, scale, thickness)`` of
-    printable ASCII at thickness 1 and scale 0.4 or 0.45: ((width,
-    height), baseline) from cv2 5.0's measured metrics
-    (``ops.text_metrics``): one pixel plus the characters' advances, the
-    scale's height, the deepest character's baseline; ((0, 0), 0) for an
-    empty text."""
-    if thickness != 1 or scale not in SIMPLEX:
-        raise ValueError(f"get_text_size knows thickness 1 at scales {sorted(SIMPLEX)}, "
-                         f"got thickness {thickness}, scale {scale}")
-    if not text:
+    one line at thickness 1 and scale 0.4 or 0.45: ((width, height),
+    baseline) from cv2 5.0's measured metrics (``ops.text_metrics``): one
+    pixel plus the characters' advances, the scale's height, the deepest
+    character's baseline; ((0, 0), 0) for an empty text. Characters as
+    ``_glyphs`` reads them."""
+    idx = _glyphs(text, scale, thickness, "get_text_size")
+    if not idx:
         return (0, 0), 0
     table = SIMPLEX[scale]
-    idx = [ord(c) - FIRST_CHAR for c in text]
-    if min(idx) < 0 or max(idx) >= len(table["advance"]):
-        raise ValueError(f"get_text_size knows printable ASCII only, got {text!r}")
     width = 1 + sum(table["advance"][i] for i in idx)
     return (width, table["height"]), max(table["baseline"][i] for i in idx)
+
+
+def put_text(canvas: np.ndarray, text: str, org: Tuple[int, int], scale: float, color,
+             thickness: int = 1) -> np.ndarray:
+    """``cv2.putText(canvas, text, org, FONT_HERSHEY_SIMPLEX, scale, color,
+    thickness)`` in place on a uint8 image, bit for bit with cv2 5.0 at
+    thickness 1 and scale 0.4 or 0.45 (default line type): each glyph's
+    coverage a (``ops.text_glyphs``) composited in order at whole-pixel
+    advances from ``org`` (x, y: the baseline's left end), each pixel
+    blended as (bg·(255 − a) + color·a + 127) // 255 and clipped at the
+    image's edges; as in cv2, no glyph is drawn from an origin at or past
+    the right edge. Characters as ``_glyphs`` reads them. Returns
+    ``canvas``."""
+    idx = _glyphs(text, scale, thickness, "put_text")
+    maps = text_glyphs.coverage(scale)
+    advance = SIMPLEX[scale]["advance"]
+    h, w = canvas.shape[:2]
+    rows, cols = text_glyphs.BOX
+    col = np.asarray(color, np.int32)[: canvas.shape[2] if canvas.ndim == 3 else 1]
+    x, y = int(org[0]), int(org[1])
+    for i in idx:
+        if x >= w:                  # cv2 stops at a glyph whose origin is past the edge
+            break
+        r0, c0 = y - text_glyphs.ROW0, x - text_glyphs.COL0
+        rs, re_, cs, ce = max(r0, 0), min(r0 + rows, h), max(c0, 0), min(c0 + cols, w)
+        if rs < re_ and cs < ce:
+            a = maps[i, rs - r0:re_ - r0, cs - c0:ce - c0].astype(np.int32)
+            view = canvas[rs:re_, cs:ce]
+            if canvas.ndim == 3:
+                a = a[..., None]
+            bg = view.astype(np.int32)
+            view[...] = ((bg * (255 - a) + col * a + 127) // 255).astype(canvas.dtype)
+        x += advance[i]
+    return canvas

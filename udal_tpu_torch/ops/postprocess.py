@@ -20,7 +20,7 @@ import torch
 from udal_tpu_torch.ops import anchors as anchor_lib
 from udal_tpu_torch.ops import cuda_nms
 from udal_tpu_torch.ops import nms as nms_lib
-from udal_tpu_torch.ops.uncertainty import decode_uncert, mc_moments
+from udal_tpu_torch.ops.uncertainty import decode_uncert, mc_moments, sample_mean
 
 CLASS_OFFSET = 1  # background is class 0 in the label map
 MAX_DETECTION_POINTS = anchor_lib.MAX_DETECTION_POINTS
@@ -55,8 +55,13 @@ class Detections:
         return tuple(out)
 
 
-def pre_nms(config, cls_outputs, box_outputs, pre_nms_topk: int = 0):
+def pre_nms(config, cls_outputs, box_outputs, pre_nms_topk: int = 0, sample_group=None):
     """Merge levels, select candidates, decode boxes + uncertainties.
+
+    With a ``sample_group`` the maps' sample axis is this rank's share of
+    the samples, split evenly over the group (``ServingDriver.
+    serve_sample_parallel``); the T-moments are all-reduced, so every rank
+    selects and decodes from the same moments.
 
     cls_outputs / box_outputs: per-level lists of [B, H, W, ·] or, with MC
     sampling, [T, B, H, W, ·]. Returns a dict of [B, M, ·] tensors: boxes,
@@ -95,7 +100,7 @@ def pre_nms(config, cls_outputs, box_outputs, pre_nms_topk: int = 0):
 
     sigma_cls_t = None
     if mc_cls:
-        cls_t, sigma_cls_t = mc_moments(cls_t)             # [B, A*C, R]
+        cls_t, sigma_cls_t = mc_moments(cls_t, sample_group)    # [B, A*C, R]
 
     r_len = cls_t.shape[-1]
     b = cls_t.shape[-3]
@@ -151,10 +156,10 @@ def pre_nms(config, cls_outputs, box_outputs, pre_nms_topk: int = 0):
     elif mc_box and loss_att:
         boxes_t, sig_t = decode_uncert(box_mu, sigma_al_g, anchor_sel, method=method,
                                        n_samples=config.decode_nsamples)
-        boxes, sigma_mc = mc_moments(boxes_t)
-        sigma_al = torch.mean(sig_t.to(torch.float32), dim=0)
+        boxes, sigma_mc = mc_moments(boxes_t, sample_group)
+        sigma_al = sample_mean(sig_t, sample_group)
     elif mc_box:
-        boxes, sigma_mc = mc_moments(anchor_lib.decode_box_outputs(box_mu, anchor_sel))
+        boxes, sigma_mc = mc_moments(anchor_lib.decode_box_outputs(box_mu, anchor_sel), sample_group)
         sigma_al = None
     else:
         boxes = anchor_lib.decode_box_outputs(box_mu.to(torch.float32), anchor_sel)
@@ -204,9 +209,10 @@ def _scales(image_scales, boxes: torch.Tensor) -> torch.Tensor:
 
 
 def postprocess_global(config, cls_outputs, box_outputs, image_scales=None,
-                       pre_nms_topk: int = 0) -> Detections:
-    """Global soft-NMS post-processing of per-level outputs → Detections."""
-    pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk)
+                       pre_nms_topk: int = 0, sample_group=None) -> Detections:
+    """Global soft-NMS post-processing of per-level outputs → Detections
+    (``sample_group``: a sample axis split over a process group, ``pre_nms``)."""
+    pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk, sample_group)
     res = _nms(config, pn["boxes"], torch.sigmoid(pn["scores_logits"]))
     boxes = _gather(pn["boxes"], res.indices)
     classes = _gather(pn["classes"], res.indices).to(boxes.dtype) + CLASS_OFFSET

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from udal_tpu_torch.ops.anchors import anchors_to_centersize
+from udal_tpu_torch.parallel.collectives import all_reduce, size
 
 
 def _corner_moments(ycenter, xcenter, h, w, dycenter, dxcenter, dh, dw):
@@ -115,12 +116,31 @@ def relativize_uncert(pred_boxes: torch.Tensor, box_uncert: torch.Tensor) -> tor
     return box_uncert / torch.stack([height, width, height, width], dim=-1)
 
 
-def mc_moments(stacked: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean and std over the leading MC-sample axis, accumulated in float32."""
+def mc_moments(stacked: torch.Tensor, sample_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and std over the leading MC-sample axis, accumulated in float32.
+    With a ``sample_group`` the axis holds this rank's share of samples
+    split evenly over the group: the ranks' means of x and x² are averaged
+    by an all-reduce, and no per-sample map leaves the rank (a group of one
+    computes what no group does)."""
     x = stacked.to(torch.float32)
-    mean = torch.mean(x, dim=0)
-    var = torch.mean(torch.square(x), dim=0) - torch.square(mean)
+    if sample_group is None:
+        mean = torch.mean(x, dim=0)
+        var = torch.mean(torch.square(x), dim=0) - torch.square(mean)
+    else:
+        means = torch.stack([torch.mean(x, dim=0), torch.mean(torch.square(x), dim=0)])
+        means = all_reduce(means, sample_group) / size(sample_group)
+        mean = means[0]
+        var = means[1] - torch.square(mean)
     return mean, torch.sqrt(torch.clamp_min(var, 0.0))
+
+
+def sample_mean(stacked: torch.Tensor, sample_group=None) -> torch.Tensor:
+    """Mean over the leading sample axis in float32 (over the group's
+    samples with a ``sample_group``, as ``mc_moments``)."""
+    mean = torch.mean(stacked.to(torch.float32), dim=0)
+    if sample_group is None:
+        return mean
+    return all_reduce(mean, sample_group) / size(sample_group)
 
 
 def clip_uncert(log_sigma_sq: torch.Tensor, clip_min: float, clip_max: float) -> torch.Tensor:

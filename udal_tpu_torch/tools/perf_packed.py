@@ -10,12 +10,16 @@ images, G = 8 pixels packed into a row, blocks 3's 24 -> 144 at 128x256):
            conv (``F.conv2d``, bf16, channels-last: cuDNN), the counterpart
            of the script's XLA conv, and ``torch.matmul`` (cuBLAS) on the
            same packed operands.
-  a1_roll  the shift along W of the packed expanded tensor (B5).
+  a1_roll  the shift along W of the packed expanded tensor (B5) vs its
+           plain version and ``F.pad`` of the unpacked view.
   p1       x + 1 through the natural view (B6) and the packed view (B7).
-  p2       the 3-tap depthwise along W with per-lane taps (B8).
+  p2       the 3-tap depthwise along W with per-lane taps (B8) vs its plain
+           version and the depthwise ``F.conv2d`` (``groups = C``, cuDNN)
+           on the channels-last view of the same memory.
   a2       B4 at m_tile 512, 2048 and 4096 vs ``torch.matmul`` in bf16
            (cuBLAS).
-  check    each function against the script's numpy references and, on a
+  check    each function against the script's numpy references, the two
+           library calls against B5's and B8's plain versions and, on a
            card, each kernel against its plain version; every check asserts.
 With no case, a1_pw and a1_roll run, as in the JAX script.
 
@@ -167,6 +171,49 @@ def wide_operands(n: int, dev):
     return x, k3, bf16(x, dev), bf16(np.tile(k3[:, None, :], (1, G, 1)).reshape(3, G * CE), dev)
 
 
+def library_wshift(xb: torch.Tensor) -> torch.Tensor:
+    """B5's function (the shift toward w + 1) as one PyTorch call: ``F.pad``
+    of the unpacked view [N, H, W, C], cropping column 0 and zero-filling
+    one past the end."""
+    n, h, wp, ge = xb.shape
+    return F.pad(xb.view(n, h, wp * G, CE), (0, 0, -1, 1))
+
+
+def dw_w3_weight(k3: torch.Tensor, dtype) -> torch.Tensor:
+    """The taps [3, C] as the depthwise ``F.conv2d``'s weight [C, 1, 1, 3]:
+    contiguous, in ``dtype``, made once outside the timed call."""
+    return k3.t().contiguous().to(dtype)[:, None, None, :].contiguous(
+        memory_format=torch.channels_last)
+
+
+def library_dw_w3(xb: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """B8's function as one PyTorch call: the 1x3 depthwise ``F.conv2d``
+    (``groups = C``, SAME along W) on the channels-last NCHW view of the
+    packed rows' memory, with the taps that every lane of a channel shares
+    in the timed cases (``dw_w3_weight``). Its output is channels-last, the
+    packed layout."""
+    n, h, wp, ge = xb.shape
+    xc = xb.view(n, h, wp * G, CE).permute(0, 3, 1, 2)
+    return F.conv2d(xc, weight, padding=(0, 1), groups=CE)
+
+
+def cuda_kernels(fn) -> list:
+    """The names of the CUDA kernels one call of ``fn`` launches, from
+    torch.profiler's trace (which says what algorithm a library call
+    chose); the profiler's error when it traces nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if str(getattr(e, "device_type", "")).endswith("CUDA")})
+    except Exception as e:          # noqa: BLE001 - a tracing failure is reported, not fatal
+        return [f"not traced: {type(e).__name__}: {e}"[:200]]
+    return names or ["not traced: the profiler recorded no device activity"]
+
+
 def p1_operands(dev):
     """p1's: x [Mp, G·CI] in f32 and bf16 on dev, Mp = 4096·N/8."""
     x = np.random.RandomState(0).randn(4096 * N // 8, G * CI).astype(np.float32)
@@ -247,6 +294,18 @@ def check(dev) -> dict:
     emit({"case": "p2_check", "max_rel_err": rel, "max_err_bf16_inputs": err, "device": str(dev)})
     del x, xb, kl, got, ref, xr, t, left, right, exact
 
+    # the library calls the timed cases beside B5 and B8 compute the same functions
+    x, k3, xb, kl = wide_operands(2, dev)
+    assert_equal(library_wshift(xb).reshape(xb.shape), packed.packed_wshift_plain(xb, CE, G, 1),
+                 "F.pad vs B5's plain version")
+    lib = library_dw_w3(xb, dw_w3_weight(torch.from_numpy(k3).to(dev), xb.dtype))
+    lib = lib.permute(0, 2, 3, 1).reshape(xb.shape)
+    lib_err = assert_bf16_close(lib, packed.packed_dw_w3_plain(xb, kl, CE), 1, 0,
+                                "depthwise F.conv2d vs B8's plain version")
+    emit({"case": "library_check", "pad_max_err": 0.0, "conv_max_err": lib_err,
+          "device": str(dev)})
+    del x, k3, xb, kl, lib
+
     if on_card:
         _, _, xb, kl = wide_operands(N, dev)
         errs["packed_wshift"] = max(assert_equal(packed.packed_wshift_cuda(xb, CE, G, d),
@@ -280,7 +339,8 @@ def case_a1_roll(dev) -> list:
     label = f"packed_wshift_{H}x{W // G}x{G * CE}"
     return [timed(lambda: packed.packed_wshift(xb, CE, G, 1), label, "kernel", 2 * nbytes(xb)),
             timed(lambda: packed.packed_wshift_plain(xb, CE, G, 1), "plain_" + label, "plain",
-                  2 * nbytes(xb))]
+                  2 * nbytes(xb)),
+            timed(lambda: library_wshift(xb), "pad_" + label, "torch_pad", 2 * nbytes(xb))]
 
 
 def case_p1(dev) -> list:
@@ -326,11 +386,25 @@ def p1_rounds(dev, rounds: int = P1_ROUNDS, copies: int = P1_COPIES) -> dict:
 
 
 def case_p2(dev) -> list:
-    _, _, xb, kl = wide_operands(N, dev)
+    _, k3, xb, kl = wide_operands(N, dev)
+    wt = dw_w3_weight(torch.from_numpy(k3).to(dev), xb.dtype)
     label = f"p2_packed_dwW_{H}x{W // G}x{G * CE}"
-    return [timed(lambda: packed.packed_dw_w3(xb, kl, CE), label, "kernel", 2 * nbytes(xb)),
+    rows = [timed(lambda: packed.packed_dw_w3(xb, kl, CE), label, "kernel", 2 * nbytes(xb)),
             timed(lambda: packed.packed_dw_w3_plain(xb, kl, CE), "plain_" + label, "plain",
                   2 * nbytes(xb))]
+    # the library call with cuDNN free to benchmark its algorithms; the
+    # kernels it then launches name the one it chose
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        rows.append(timed(lambda: library_dw_w3(xb, wt), "conv_" + label, "cudnn_conv",
+                          2 * nbytes(xb)))
+        rows[-1]["cuda_kernels"] = emit({"case": "conv_" + label + "_kernels",
+                                         "cuda_kernels": cuda_kernels(
+                                             lambda: library_dw_w3(xb, wt))})["cuda_kernels"]
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    return rows
 
 
 def case_a2(dev) -> list:

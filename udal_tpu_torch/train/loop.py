@@ -1,17 +1,25 @@
 """Epoch loop: train, validate, checkpoint, resume and stop early.
 
-Port of ``udal_tpu/train/loop.py``'s ``train_and_evaluate`` on one device
-(the mesh is not ported): an epoch of ``steps_per_epoch`` steps from
-``train_iter``, one ``train_step`` call a step, the validation loss
-through ``eval_step``, the COCO AP every ``map_freq`` epochs
-(``train/callbacks.py``), a checkpoint every ``save_freq`` epochs keeping
-the newest ``keep_checkpoint_max`` (at least 2), a resume from the latest
-checkpoint in ``model_dir``, and early stopping that restores the best
-state.
+Port of ``udal_tpu/train/loop.py``'s ``train_and_evaluate``: an epoch of
+``steps_per_epoch`` steps from ``train_iter``, one ``train_step`` call a
+step, the validation loss through ``eval_step``, the COCO AP every
+``map_freq`` epochs (``train/callbacks.py``), a checkpoint every
+``save_freq`` epochs keeping the newest ``keep_checkpoint_max`` (at least
+2), a resume from the latest checkpoint in ``model_dir``, and early
+stopping that restores the best state.
+
+Over several processes (``parallel.mesh``) every rank runs the loop: a
+mesh of the world's ranks, ``config.n_model`` of them to a model group;
+every rank restores, then the state is broadcast from rank 0 and, with
+``n_model`` > 1, sharded over the model groups. Rank 0 alone writes the
+checkpoints, the metrics, the COCO callback's output and the log; the
+validation loss is averaged over the data group, so every rank takes the
+same early-stopping decision and the ranks stop together.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Dict, Iterator, List, Optional
@@ -20,6 +28,8 @@ import numpy as np
 import torch
 
 from udal_tpu_torch.data.label_maps import get_label_map
+from udal_tpu_torch.parallel.collectives import all_reduce
+from udal_tpu_torch.parallel.mesh import make_mesh, replicate_state, shard_state_tp
 from udal_tpu_torch.train.callbacks import COCOCallback
 from udal_tpu_torch.train.train_lib import (create_train_state, eval_step, resolve_device,
                                             train_step)
@@ -54,7 +64,8 @@ def train_and_evaluate(config, train_iter: Iterator, steps_per_epoch: int, model
                        val_iter_fn: Optional[Callable[[], Iterator]] = None,
                        val_steps: int = 0, seed: int = 0, device=None,
                        log_fn: Callable[[str], None] = print,
-                       coco_eval_fn: Optional[Callable] = None) -> Dict[str, List[float]]:
+                       coco_eval_fn: Optional[Callable] = None,
+                       mesh=None) -> Dict[str, List[float]]:
     """Train for ``config.num_epochs`` epochs on ``device`` (the card
     unless ``device="cpu"``); returns the history: ``loss`` and
     ``val_loss`` per epoch, and ``final_state``.
@@ -75,15 +86,36 @@ def train_and_evaluate(config, train_iter: Iterator, steps_per_epoch: int, model
     no effect: eager PyTorch has no multi-step program to amortise a
     call's dispatch over, and k single steps give the same state and
     history as the JAX package's k-step call.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) runs the loop data- and
+    tensor-parallel; without one it is made when the process group spans
+    more than one rank or ``config.n_model`` > 1. ``config.batch_size``
+    stays the global batch: each rank's ``train_iter`` yields its
+    ``batch_size / n_data`` rows (a reader sharded by data rank), or the
+    global batch, whose rows ``train_step`` takes.
     """
-    device = resolve_device(device)
+    n_model = int(config.get("n_model", 1) or 1)
+    if mesh is None and (n_model > 1 or (torch.distributed.is_initialized()
+                                         and torch.distributed.get_world_size() > 1)):
+        mesh = make_mesh(n_model=n_model, device=device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        log_fn = lambda msg: None  # noqa: E731 - rank 0 logs
     state, schedule = create_train_state(config, steps_per_epoch,
                                          torch.Generator().manual_seed(seed), device)
     state, start_epoch = restore_checkpoint(model_dir, state)
+    if mesh is not None:
+        state = (shard_state_tp if mesh.shape["model"] > 1 else replicate_state)(mesh, state)
+
+    def whole():
+        """The state unsharded while open, under tensor parallelism."""
+        return state.tp.gathered(state) if state.tp is not None else contextlib.nullcontext()
+
     stopper = EarlyStopping(config.early_stopping_patience or 0)
     history: Dict[str, List] = {"loss": [], "val_loss": []}
     keep_n = max(2, int(config.get("keep_checkpoint_max", 5) or 5))
-    metrics_writer = MetricsWriter(os.path.join(model_dir, "logs"))
+    metrics_writer = MetricsWriter(os.path.join(model_dir, "logs")) if lead else None
     sync_every = max(1, int(config.get("host_sync_every", 8) or 8))
     map_freq = int(config.get("map_freq", 0) or 0)
     if coco_eval_fn is None and val_iter_fn is not None and val_steps > 0 and map_freq > 0:
@@ -113,37 +145,48 @@ def train_and_evaluate(config, train_iter: Iterator, steps_per_epoch: int, model
         msg = (f"epoch {epoch + 1}/{config.num_epochs} "
                f"loss={epoch_loss:.4f} ({time.time() - t0:.1f}s)")
 
-        val_loss = None
-        if val_iter_fn is not None and val_steps > 0:
-            vit = val_iter_fn()
-            vlosses = []
-            for _ in range(val_steps):
-                images, labels = next(vit)
-                labels = {k: v for k, v in labels.items() if not isinstance(v, list)}
-                vlosses.append(eval_step(config, state, images, labels)["val_det_loss"])
-            val_loss = float(torch.stack(vlosses).float().mean())
-            history["val_loss"].append(val_loss)
-            msg += f" val_loss={val_loss:.4f}"
+        with whole():
+            val_loss = None
+            if val_iter_fn is not None and val_steps > 0:
+                vit = val_iter_fn()
+                vlosses = []
+                for _ in range(val_steps):
+                    images, labels = next(vit)
+                    labels = {k: v for k, v in labels.items() if not isinstance(v, list)}
+                    vlosses.append(eval_step(config, state, images, labels)["val_det_loss"])
+                mean = torch.stack(vlosses).float().mean().reshape(1)
+                if mesh is not None:        # the data ranks' mean: one decision everywhere
+                    mean = all_reduce(mean, mesh.data_group) / mesh.shape["data"]
+                val_loss = float(mean[0])
+                history["val_loss"].append(val_loss)
+                msg += f" val_loss={val_loss:.4f}"
 
-        if coco_eval_fn is not None and map_freq > 0 and (epoch + 1) % map_freq == 0:
-            ap = coco_eval_fn(epoch + 1, state, metrics_writer)
-            history.setdefault("AP", []).append(float(ap))
-            msg += f" AP={ap:.4f}"
+            if (lead and coco_eval_fn is not None and map_freq > 0
+                    and (epoch + 1) % map_freq == 0):
+                ap = coco_eval_fn(epoch + 1, state, metrics_writer)
+                history.setdefault("AP", []).append(float(ap))
+                msg += f" AP={ap:.4f}"
 
-        log_fn(msg)
-        metrics_writer.write(epoch + 1, {
-            "loss": epoch_loss, **({"val_loss": val_loss} if val_loss is not None else {})})
+            log_fn(msg)
+            if lead:
+                metrics_writer.write(epoch + 1, {
+                    "loss": epoch_loss,
+                    **({"val_loss": val_loss} if val_loss is not None else {})})
 
-        if (epoch + 1) % max(1, int(config.save_freq)) == 0:
-            save_checkpoint(model_dir, state, epoch + 1, keep_last_n=keep_n)
-
-        if val_loss is not None and stopper.update(val_loss, state):
-            log_fn(f"early stopping at epoch {epoch + 1}; restoring best")
-            if stopper.best_state is not None:
-                load_payload(state, stopper.best_state)
+            if lead and (epoch + 1) % max(1, int(config.save_freq)) == 0:
                 save_checkpoint(model_dir, state, epoch + 1, keep_last_n=keep_n)
+
+            stop = val_loss is not None and stopper.update(val_loss, state)
+            if stop:
+                log_fn(f"early stopping at epoch {epoch + 1}; restoring best")
+                if stopper.best_state is not None:
+                    load_payload(state, stopper.best_state)
+                    if lead:
+                        save_checkpoint(model_dir, state, epoch + 1, keep_last_n=keep_n)
+        if stop:
             break
 
-    metrics_writer.close()
+    if lead:
+        metrics_writer.close()
     history["final_state"] = state  # type: ignore[assignment]
     return history

@@ -19,6 +19,7 @@ from torch import nn
 
 from udal_tpu_torch.ops import anchors as anchor_lib
 from udal_tpu_torch.ops.boxes import iou_loss as iou_loss_fn
+from udal_tpu_torch.parallel.collectives import all_reduce
 
 
 def huber(targets: torch.Tensor, preds: torch.Tensor, delta: float) -> torch.Tensor:
@@ -95,9 +96,13 @@ def box_loss(box_targets: torch.Tensor, box_output: torch.Tensor,
 
 def detection_loss(config, cls_outputs: Sequence[torch.Tensor],
                    box_outputs: Sequence[torch.Tensor], labels: Dict[str, torch.Tensor],
-                   pseudo_scores: Optional[torch.Tensor] = None
+                   pseudo_scores: Optional[torch.Tensor] = None, group=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total detection loss over the levels, and its parts.
+
+    Under data parallelism ``group`` is the data group: the normaliser
+    (the positives + 1) is the global batch's, all-reduced, so the ranks'
+    losses sum to the global batch's loss.
 
     ``labels``: ``cls_targets_<l>`` [B, H, W, A] (class − 1; background −1
     is the all-zero one-hot row, ignored −2 is masked),
@@ -106,7 +111,8 @@ def detection_loss(config, cls_outputs: Sequence[torch.Tensor],
     the levels' mean under attenuation, their sum otherwise.
     """
     dtype = cls_outputs[0].dtype
-    num_positives_sum = (torch.sum(labels["mean_num_positives"]) + 1.0).to(dtype)
+    positives = all_reduce(torch.sum(labels["mean_num_positives"]).reshape(1), group)[0]
+    num_positives_sum = (positives + 1.0).to(dtype)
     classes = torch.arange(config.num_classes, device=cls_outputs[0].device)
 
     cls_losses, box_losses = [], []
@@ -217,13 +223,18 @@ def csd_ramp_weight(step: int, total_steps: int) -> float:
     return up * down
 
 
+def l2_named_parameters(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The weights the L2 term covers, by name: the JAX package's filter on
+    the flax path ('bn', 'bias' or 'batch' in it excludes a leaf) applied to
+    the port's parameter names, which carry the same scope names, so the
+    same leaves are chosen: every kernel and the BiFPN's edge weights."""
+    return {name: p for name, p in model.named_parameters()
+            if not any(k in name.lower() for k in ("bn", "bias", "batch"))}
+
+
 def l2_parameters(model: nn.Module):
-    """The weights the L2 term covers: the JAX package's filter on the flax
-    path ('bn', 'bias' or 'batch' in it excludes a leaf) applied to the
-    port's parameter names, which carry the same scope names, so the same
-    leaves are chosen: every kernel and the BiFPN's edge weights."""
-    return [p for name, p in model.named_parameters()
-            if not any(k in name.lower() for k in ("bn", "bias", "batch"))]
+    """The weights the L2 term covers (``l2_named_parameters``)."""
+    return list(l2_named_parameters(model).values())
 
 
 def l2_regularization(params: Sequence[torch.Tensor], weight_decay: float) -> torch.Tensor:

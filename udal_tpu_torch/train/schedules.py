@@ -13,9 +13,11 @@ Clipping is per tensor, then global, as a transform of its own in the step.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from udal_tpu_torch.parallel.collectives import all_reduce
 
 Schedule = Callable[[int], float]
 
@@ -94,11 +96,18 @@ def make_optimizer(config, params: Sequence[torch.Tensor], steps_per_epoch: int
     return opt, schedule
 
 
-def clip_gradients(grads: List[torch.Tensor], clip_norm: float) -> torch.Tensor:
+def clip_gradients(grads: List[torch.Tensor], clip_norm: float,
+                   sharded: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
     """Clip ``grads`` in place: each tensor to norm ``clip_norm``, then all
     of them together to global norm ``clip_norm``. Returns the global norm
-    after both (a device scalar; nothing is read on the host)."""
+    after both (a device scalar; nothing is read on the host). Under tensor
+    parallelism the tensors flagged in ``sharded`` are this rank's slices:
+    their norms are the whole tensors', summed over the model ``group``."""
     norms = torch.stack(torch._foreach_norm(grads))
+    if group is not None and sharded is not None and any(sharded):
+        mask = torch.tensor(list(sharded), device=norms.device)
+        squares = all_reduce(torch.where(mask, norms * norms, torch.zeros_like(norms)), group)
+        norms = torch.where(mask, torch.sqrt(squares), norms)
     per = torch.clamp_max(clip_norm / torch.clamp_min(norms, 1e-12), 1.0)
     gnorm = torch.linalg.vector_norm(norms * per)
     glob = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)

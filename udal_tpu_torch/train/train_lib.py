@@ -8,6 +8,17 @@ drops the backbone's folds), runs forward, loss and backward, clips,
 updates and moves the EMA; ``eval_step`` runs the model in eval mode, through the serving kernels on a
 card.
 
+Under a mesh (``state.mesh``, set by ``parallel.mesh.replicate_state`` or
+``shard_state_tp``) a rank's step is its share of the JAX package's global
+SPMD step: it takes its rows of the batch, draws the whole batch's dropout
+masks and keeps its rows, reduces BatchNorm's moments and the detection
+loss's normaliser (the positives) over the data group, sums the gradients
+over it (the L2 term's once: data rank 0 carries it), clips by the global
+norm and updates identically on every rank; the reported values are the
+global batch's. Under tensor parallelism (``state.tp``) the forward runs on
+channel-sharded state (``parallel/tensor_parallel.py``). SSL batches split
+at a row index refuse a world above one (ROADMAP A11b).
+
 Covers the JAX step's branches: plain detection training (per-image
 pseudo-score weights from the groundtruth's pseudo column), STAC's
 labelled / pseudo-labelled split, CSD's flipped second forward (BatchNorm
@@ -28,8 +39,11 @@ import torch
 from udal_tpu_torch.config import parse_image_size
 from udal_tpu_torch.data.labels import build_labels
 from udal_tpu_torch.models.efficientdet import EfficientDetNet, init_flax_style
-from udal_tpu_torch.models.efficientnet import ChannelDropout
+from udal_tpu_torch.models.efficientnet import ChannelDropout, ShardedDropout
 from udal_tpu_torch.ops.image_ops import warp_resize_batch
+from udal_tpu_torch.parallel.collectives import all_reduce, global_mean
+from udal_tpu_torch.parallel.mesh import Mesh
+from udal_tpu_torch.parallel.tensor_parallel import TensorParallel
 from udal_tpu_torch.train import losses as loss_lib
 from udal_tpu_torch.train.schedules import Schedule, clip_gradients, make_optimizer
 
@@ -42,6 +56,8 @@ class TrainState:
     model: EfficientDetNet
     optimizer: torch.optim.Optimizer
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    mesh: Optional[Mesh] = None                 # data / tensor parallelism
+    tp: Optional[TensorParallel] = None         # the 'model' axis's layout
 
 
 def resolve_device(device=None) -> torch.device:
@@ -155,13 +171,18 @@ def _split(tensors, start: int, end: int):
 
 def compute_loss(config, model: EfficientDetNet, images: torch.Tensor,
                  labels: Mapping[str, torch.Tensor], masks: Optional[ChannelDropout],
-                 step: int, steps_per_epoch: int
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Forward of the model as its mode stands, and the total loss with its
-    parts. ``masks`` is the dropout source (MC dropout and stochastic
-    depth); CSD's flipped forward draws from it after the first."""
+                 step: int, steps_per_epoch: int, mesh: Optional[Mesh] = None,
+                 forward=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward of the model as its mode stands (through ``forward`` when
+    given), and the total loss with its parts. ``masks`` is the dropout
+    source (MC dropout and stochastic depth); CSD's flipped forward draws
+    from it after the first. Under a ``mesh`` the loss is this rank's share
+    of the global batch's: the ranks' shares sum to it, the L2 term counted
+    on data rank 0 (the others carry its value without its gradient)."""
+    forward = forward or model
+    group = mesh.data_group if mesh is not None else None
     with _autocast(config, images.device):
-        outs = model(images, masks)
+        outs = forward(images, masks)
     loss_vals: Dict[str, torch.Tensor] = {}
     idx = 0
     if "object_detection" in config.heads:
@@ -187,7 +208,7 @@ def compute_loss(config, model: EfficientDetNet, images: torch.Tensor,
     if "object_detection" in config.heads:
         if ssl_method == "CSD":
             with _autocast(config, images.device):
-                outs_aug = model(torch.flip(images, dims=[2]), masks)
+                outs_aug = forward(torch.flip(images, dims=[2]), masks)
             cls_aug, box_aug = outs_aug[0], outs_aug[1]
             if config.loss_attenuation:
                 box_mu = [b[..., : b.shape[-1] // 2] for b in box_outputs]
@@ -221,19 +242,23 @@ def compute_loss(config, model: EfficientDetNet, images: torch.Tensor,
             total += sup_loss * avg_batch + stac_lambda * pseudo_loss * avg_pseudo
         else:
             det_loss, loss_vals = loss_lib.detection_loss(config, cls_outputs, box_outputs,
-                                                          labels)
+                                                          labels, group=group)
             if im_scores is not None:
-                det_loss = det_loss * torch.mean(im_scores)
+                det_loss = det_loss * global_mean(im_scores, group)
             total += det_loss
 
     if "segmentation" in config.heads:
         logp = torch.log_softmax(outs[idx], dim=-1)
         seg_loss = -torch.mean(torch.gather(
             logp, -1, labels["image_masks"][..., None].to(torch.int64)))
+        if mesh is not None:                 # the rank's share of the batch's mean
+            seg_loss = seg_loss / mesh.shape["data"]
         loss_vals["seg_loss"] = seg_loss
         total += seg_loss
 
     reg = loss_lib.l2_regularization(loss_lib.l2_parameters(model), config.weight_decay)
+    if mesh is not None and mesh.data_index != 0:
+        reg = reg.detach()
     loss_vals["reg_l2_loss"] = reg
     total = total + reg
     loss_vals["loss"] = total
@@ -246,24 +271,36 @@ def train_step(config, schedule: Schedule, steps_per_epoch: int, state: TrainSta
     """One training step on the model's device; ``state`` is updated in
     place and returned with the step's values (device tensors, nothing
     read on the host): the loss and its parts, ``gradient_norm`` (after
-    clipping) and ``learning_rate``, the rate this update used."""
-    model, optimizer = state.model, state.optimizer
+    clipping) and ``learning_rate``, the rate this update used. Under a
+    mesh, ``images`` and ``labels`` are this rank's rows of the global
+    batch (``parallel.mesh.shard_batch``), as each data rank's reader
+    yields them."""
+    model, optimizer, mesh, tp = state.model, state.optimizer, state.mesh, state.tp
     device = next(model.parameters()).device
-    images, labels = prepare_batch(config, images, labels, device)
     masks = ChannelDropout(step_generator(seed, state.step, device))
+    if mesh is not None:
+        _refuse_ssl(config, mesh)
+        masks = ShardedDropout(masks, mesh.data_index, mesh.shape["data"])
+    images, labels = prepare_batch(config, images, labels, device)
     model.train()
     names, params = zip(*model.named_parameters())
     optimizer.zero_grad(set_to_none=True)
+    forward = (lambda *args: tp.forward(model, *args)) if tp is not None else None
     with _precision_ctx(config):
         loss, loss_vals = compute_loss(config, model, images, labels, masks, state.step,
-                                       steps_per_epoch)
+                                       steps_per_epoch, mesh, forward)
         loss.backward()
     for p in params:
         if p.grad is None:      # a parameter the loss does not reach: a zero gradient
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        _sum_gradients([p.grad for p in params], mesh.data_group)
+        loss_vals = _global_values(config, loss_vals, model, mesh, tp)
     if config.clip_gradients_norm and config.clip_gradients_norm > 0:
-        loss_vals["gradient_norm"] = clip_gradients([p.grad for p in params],
-                                                    abs(config.clip_gradients_norm))
+        loss_vals["gradient_norm"] = clip_gradients(
+            [p.grad for p in params], abs(config.clip_gradients_norm),
+            [tp.is_sharded(n) for n in names] if tp is not None else None,
+            tp.group if tp is not None else None)
 
     lr = schedule(state.step)           # optax reads the count before the update
     for group in optimizer.param_groups:
@@ -278,6 +315,40 @@ def train_step(config, schedule: Schedule, steps_per_epoch: int, state: TrainSta
     loss_vals["learning_rate"] = torch.tensor(lr)
     state.step += 1
     return state, {k: v.detach() for k, v in loss_vals.items()}
+
+
+def _refuse_ssl(config, mesh: Mesh) -> None:
+    if mesh.size > 1 and (config.get("ssl_method") or config.get("unlabeled_start")):
+        raise ValueError("SSL batches split their rows at unlabeled_start, a global index; "
+                         "training them on a mesh of more than one rank is not ported yet "
+                         "(ROADMAP A11b)")
+
+
+def _sum_gradients(grads, group) -> None:
+    """Sum the ranks' gradients over the data group, in place, as one
+    flat buffer."""
+    flat = all_reduce(torch._utils._flatten_dense_tensors(grads), group)
+    for g, s in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+        g.copy_(s)
+
+
+def _global_values(config, loss_vals: Dict[str, torch.Tensor], model, mesh: Mesh,
+                   tp: Optional[TensorParallel]) -> Dict[str, torch.Tensor]:
+    """The global batch's loss and parts from the ranks' shares: the
+    parts summed over the data group, the L2 term once (over the whole
+    tensors under tensor parallelism)."""
+    reg = loss_vals["reg_l2_loss"].detach()
+    if tp is not None:
+        squares = tp.square_sums(loss_lib.l2_named_parameters(model))
+        reg = (config.weight_decay * squares / 2.0).to(reg.dtype)
+    keys = [k for k in loss_vals if k != "reg_l2_loss"]
+    shares = torch.stack([(loss_vals[k].detach() - loss_vals["reg_l2_loss"].detach()
+                           if k == "loss" else loss_vals[k].detach()).float() for k in keys])
+    shares = all_reduce(shares, mesh.data_group)
+    out = {k: shares[i].to(loss_vals[k].dtype) for i, k in enumerate(keys)}
+    out["loss"] = out["loss"] + reg
+    out["reg_l2_loss"] = reg
+    return out
 
 
 def eval_step(config, state: TrainState, images, labels: Mapping) -> Dict[str, torch.Tensor]:

@@ -17,7 +17,7 @@ instead, as JSON where the PNG would go (``<name>.json`` for
 * ``metric_heatmap``: the matrix with its labels.
 
 ``top10_panel`` is a grid of images, so it stays a PNG: a contact sheet
-(``utils.visualize.contact_sheet``, captions not drawn).
+(``utils.visualize.contact_sheet``, each image captioned with its label).
 """
 
 from __future__ import annotations
@@ -174,7 +174,8 @@ def metric_heatmap(matrix: np.ndarray, xlabels: Sequence[str],
 
 def top10_panel(images: List[np.ndarray], labels: List[str], path: str,
                 title: str = "top uncertainty") -> str:
-    """The images as one contact-sheet PNG at ``path``, five a row."""
+    """The images as one contact-sheet PNG at ``path``, five a row, each
+    captioned with its label."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     write_png(path, contact_sheet(images, cols=5, labels=labels))
     return path

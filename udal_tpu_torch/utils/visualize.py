@@ -1,14 +1,12 @@
 """Detections drawn over images, boxes coloured by class or uncertainty.
 
 Port of ``udal_tpu/utils/visualize.py`` without cv2: numpy on the host,
-through ``ops.cv_ops``. Boxes and label backgrounds are cv2's pixels bit
-for bit (``cv_ops.rectangle``; the label box's size from
-``cv_ops.get_text_size``), and the contact sheet's thumbnails are cv2's
-INTER_LINEAR resize (``ops.image_ops.resize_bilinear_uint8``). The label
-text itself is not drawn: cv2 5.0 renders it from an antialiased outline
-font the port does not carry (ROADMAP C16), so each label is its
-coloured background box alone, and a contact sheet's captions are left
-out.
+through ``ops.cv_ops``. Boxes, label backgrounds and label text are cv2
+5.0's pixels bit for bit (``cv_ops.rectangle``, ``cv_ops.get_text_size``
+and ``cv_ops.put_text``, which composites cv2's measured glyph coverage),
+and the contact sheet's thumbnails are cv2's INTER_LINEAR resize
+(``ops.image_ops.resize_bilinear_uint8``) under captions drawn the same
+way.
 """
 
 from __future__ import annotations
@@ -17,7 +15,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from udal_tpu_torch.ops.cv_ops import get_text_size, rectangle
+from udal_tpu_torch.ops.cv_ops import get_text_size, put_text, rectangle
 from udal_tpu_torch.ops.image_ops import resize_bilinear_uint8
 
 STANDARD_COLORS = [
@@ -26,6 +24,7 @@ STANDARD_COLORS = [
 ]
 
 LABEL_SCALE = 0.4
+CAPTION_SCALE = 0.45
 
 
 def _uncert_color(u_norm: float) -> tuple:
@@ -44,7 +43,8 @@ def visualize_boxes_and_labels(image: np.ndarray, boxes: np.ndarray,
                                line_thickness: int = 2) -> np.ndarray:
     """A copy of the uint8 RGB ``image`` with the detections scoring at
     least ``min_score_thresh`` drawn: boxes [N, 4] (y1, x1, y2, x2) in
-    pixels, each with its label's background box above its top-left
+    pixels, each with its label ("name: score%", and " s=σ" with
+    uncertainties) in black on a background box above its top-left
     corner. Colours come from the class, or with ``uncertainties`` ([N] or
     [N, 4] σ, min-max normalised over the kept boxes) from green (lowest)
     to red (highest)."""
@@ -72,6 +72,7 @@ def visualize_boxes_and_labels(image: np.ndarray, boxes: np.ndarray,
         (tw, th), _ = get_text_size(text, LABEL_SCALE, 1)
         ty = max(th + 2, y1)
         rectangle(img, (x1, ty - th - 2), (x1 + tw, ty), color, -1)
+        put_text(img, text, (x1, ty - 2), LABEL_SCALE, (0, 0, 0), 1)
     return img
 
 
@@ -109,8 +110,8 @@ def contact_sheet(images: Sequence[np.ndarray], cols: int = 5,
                   thumb_hw: tuple = (180, 320),
                   labels: Optional[Sequence[str]] = None) -> np.ndarray:
     """The images resized to ``thumb_hw`` and tiled row by row, ``cols``
-    a row, into one uint8 RGB grid. ``labels`` are accepted for the JAX
-    signature; their captions are not drawn (module docstring)."""
+    a row, into one uint8 RGB grid; each ``labels`` entry (its first 40
+    characters) captioned in yellow at its tile's top left."""
     th, tw = thumb_hw
     n = len(images)
     cols = max(1, min(cols, n))
@@ -122,6 +123,9 @@ def contact_sheet(images: Sequence[np.ndarray], cols: int = 5,
         if thumb.ndim == 2:
             thumb = np.stack([thumb] * 3, -1)
         canvas[r * th:(r + 1) * th, c * tw:(c + 1) * tw] = thumb[..., :3]
+        if labels is not None:
+            put_text(canvas, str(labels[idx])[:40], (c * tw + 4, r * th + 16), CAPTION_SCALE,
+                     (255, 255, 0), 1)
     return canvas
 
 
