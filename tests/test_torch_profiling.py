@@ -1,8 +1,8 @@
 """The port's ``utils/profiling.py`` against the JAX package's, on the CPU.
 
-``LatencyRecorder`` summarises alike; ``device_memory_stats`` is a dict
-(empty here: no card, as JAX's on a backend without statistics); ``trace``
-writes a Chrome trace JSON under its directory naming the ops it saw.
+``device_memory_stats`` is a dict (empty here: no card, as JAX's on a
+backend without statistics); ``trace`` writes a Chrome trace JSON under
+its directory naming the ops it saw (its spans: test_torch_tracing.py).
 ``MetricsWriter.write_image`` writes nothing, as JAX's does without
 TensorBoard.
 """
@@ -16,25 +16,6 @@ torch = pytest.importorskip("torch")
 
 from udal_tpu.utils import profiling as jax_profiling  # noqa: E402
 from udal_tpu_torch.utils import profiling  # noqa: E402
-
-
-@pytest.mark.parametrize("samples", [[0.01] * 20 + [5.0], [0.2, 0.1, 0.4, 0.3], [], [1.5]])
-def test_latency_recorder_equals_jax(samples):
-    got, want = profiling.LatencyRecorder(), jax_profiling.LatencyRecorder()
-    got.samples.extend(samples)
-    want.samples.extend(samples)
-    assert got.summary() == want.summary()
-    if len(samples) > 10:
-        assert got.summary()["n_outliers"] == 1 and got.summary()["median"] == 0.01
-
-
-def test_latency_recorder_measures():
-    rec = profiling.LatencyRecorder()
-    for _ in range(3):
-        with rec.measure():
-            np.linalg.svd(np.ones((20, 20)))
-    s = rec.summary()
-    assert s["n"] + s["n_outliers"] == 3 and s["mean"] > 0
 
 
 def test_device_memory_stats_without_a_card():

@@ -23,6 +23,8 @@ has only PyTorch and numpy.
 
 from __future__ import annotations
 
+import functools
+import inspect
 import time
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -37,6 +39,25 @@ from udal_tpu_torch.models.ensemble import (ensemble_forward, stack_variables,
 from udal_tpu_torch.ops.image_ops import warp_resize_batch
 from udal_tpu_torch.ops.postprocess import Detections, postprocess_global
 from udal_tpu_torch.parallel.collectives import all_gather
+from udal_tpu_torch.utils import profiling
+
+
+def _entry(frames: str):
+    """A public entry of the serve path: one root ``serve`` span a call,
+    none where another entry calls it (attributes: the entry, the batch in
+    argument ``frames``, the samples or members a frame)."""
+    def wrap(fn):
+        signature = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def entry(self, *args, **kwargs):
+            with profiling.span("serve") as s:
+                if s is not None:
+                    batch = signature.bind(self, *args, **kwargs).arguments[frames]
+                    s.attrs.update(entry=fn.__name__, batch=len(batch), samples=self._samples())
+                return fn(self, *args, **kwargs)
+        return entry
+    return wrap
 
 
 class ServingDriver:
@@ -121,6 +142,12 @@ class ServingDriver:
         return bool(cfg.mc_dropout and (cfg.mc_dropoutrate or cfg.mc_classheadrate or
                                         cfg.mc_boxheadrate))
 
+    def _samples(self) -> int:
+        """Passes of the network a frame: members, MC samples or 1."""
+        if self.ensemble:
+            return self.num_members
+        return int(self.config.mc_dropoutsamp) if self._mc() else 1
+
     def _forward(self, images: torch.Tensor, masks=None, members=None, samples=None):
         """The network's outputs: the ensemble's ``members`` (all by
         default), or ``samples`` MC samples (the config's T by default) with
@@ -138,10 +165,22 @@ class ServingDriver:
         outs = self._forward(images.to(self.dtype), masks)
         return postprocess_global(self.config, outs[0], outs[1], image_scales=scales)
 
+    def _upload(self, frames) -> torch.Tensor:
+        """The frames on the device (span ``serve.upload``: the bytes taken
+        from host memory, and whether they were pinned)."""
+        with profiling.span("serve.upload") as s:
+            x = torch.as_tensor(frames, device=self.device)
+            if s is not None:
+                host = not isinstance(frames, torch.Tensor) or frames.device.type == "cpu"
+                s.attrs.update(bytes=x.nbytes if host else 0,
+                               pinned=isinstance(frames, torch.Tensor) and frames.is_pinned())
+        return x
+
     def _raw(self, raw_images) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
-        raw = torch.as_tensor(raw_images, device=self.device)
-        return preprocess_images(raw, cfg.image_size, cfg.mean_rgb, cfg.stddev_rgb)
+        raw = self._upload(raw_images)
+        with profiling.span("serve.prep"):
+            return preprocess_images(raw, cfg.image_size, cfg.mean_rgb, cfg.stddev_rgb)
 
     def _scales(self, image_scales, batch: int) -> torch.Tensor:
         if image_scales is None:
@@ -149,7 +188,7 @@ class ServingDriver:
         return torch.as_tensor(image_scales, dtype=torch.float32, device=self.device)
 
     def _pre(self, images, image_scales) -> Tuple[torch.Tensor, torch.Tensor]:
-        images = torch.as_tensor(images, device=self.device)
+        images = self._upload(images)
         return images, self._scales(image_scales, images.shape[0])
 
     def _u8_prep(self, images: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
@@ -167,44 +206,50 @@ class ServingDriver:
         network size (warped first when ``warp_scale`` is given), and
         their scales. ``valid_hw`` defaults to everything valid: the
         network size with warp parameters, the input's size without."""
-        x = torch.as_tensor(images_u8, device=self.device)
-        b, h, w = x.shape[:3]
-        if warp_scale is not None:
-            out_hw = parse_image_size(self.config.image_size)
-            if warp_offset is None:
-                raise ValueError("warp_scale comes with warp_offset (the device-resize "
-                                 "reader gives both)")
-            x = warp_resize_batch(x, torch.as_tensor(warp_scale, device=self.device),
-                                  torch.as_tensor(warp_offset, device=self.device), out_hw)
-            h, w = out_hw
-        if valid_hw is None:
-            valid_hw = torch.tensor([[h, w]] * b, dtype=torch.int32)
-        valid_hw = torch.as_tensor(valid_hw, dtype=torch.int32, device=self.device)
-        return self._u8_prep(x, valid_hw), self._scales(image_scales, b)
+        x = self._upload(images_u8)
+        with profiling.span("serve.prep"):
+            b, h, w = x.shape[:3]
+            if warp_scale is not None:
+                out_hw = parse_image_size(self.config.image_size)
+                if warp_offset is None:
+                    raise ValueError("warp_scale comes with warp_offset (the device-resize "
+                                     "reader gives both)")
+                x = warp_resize_batch(x, torch.as_tensor(warp_scale, device=self.device),
+                                      torch.as_tensor(warp_offset, device=self.device), out_hw)
+                h, w = out_hw
+            if valid_hw is None:
+                valid_hw = torch.tensor([[h, w]] * b, dtype=torch.int32)
+            valid_hw = torch.as_tensor(valid_hw, dtype=torch.int32, device=self.device)
+            return self._u8_prep(x, valid_hw), self._scales(image_scales, b)
 
     # -- entries ---------------------------------------------------------------
 
+    @_entry("raw_images")
     def serve(self, raw_images) -> Tuple[torch.Tensor, ...]:
         """Raw uint8/float images [B, H, W, 3] → packed detection tuple
         (boxes⊕sigma_al⊕sigma_mc, scores, classes⊕sigma_cls, valid_len
         [, logits])."""
         return self.serve_detections(raw_images).packed()
 
+    @_entry("raw_images")
     def serve_detections(self, raw_images) -> Detections:
         """Structured (unpacked) serve of raw images."""
         with torch.inference_mode():
             return self._detect(*self._raw(raw_images))
 
+    @_entry("images")
     def serve_preprocessed(self, images, image_scales=None) -> Tuple[torch.Tensor, ...]:
         """Packed serve of already normalised and resized NHWC images;
         ``image_scales`` [B] map boxes back to the original frame."""
         return self.serve_detections_preprocessed(images, image_scales).packed()
 
+    @_entry("images")
     def serve_detections_preprocessed(self, images, image_scales=None) -> Detections:
         """Structured serve of already normalised and resized images."""
         with torch.inference_mode():
             return self._detect(*self._pre(images, image_scales))
 
+    @_entry("images_u8")
     def serve_preprocessed_uint8(self, images_u8, valid_hw=None, image_scales=None,
                                  warp_scale=None, warp_offset=None) -> Tuple[torch.Tensor, ...]:
         """Packed serve of network-size, unnormalised uint8 images [B, H, W,
@@ -217,6 +262,7 @@ class ServingDriver:
         return self.serve_detections_preprocessed_uint8(
             images_u8, valid_hw, image_scales, warp_scale, warp_offset).packed()
 
+    @_entry("images_u8")
     def serve_detections_preprocessed_uint8(self, images_u8, valid_hw=None,
                                             image_scales=None, warp_scale=None,
                                             warp_offset=None) -> Detections:
@@ -227,6 +273,7 @@ class ServingDriver:
 
     # -- over a mesh ----------------------------------------------------------
 
+    @_entry("raw_images")
     def serve_sharded(self, mesh, raw_images) -> Tuple[torch.Tensor, ...]:
         """Serve a pool-sized batch sharded over the mesh's 'data' axis (the
         AL / SSL pool-scoring layout): every rank holds the weights, takes
@@ -246,6 +293,7 @@ class ServingDriver:
                      for i in range(0, len(local), step)]
             return tuple(all_gather(torch.cat(ts), mesh.data_group) for ts in zip(*parts))
 
+    @_entry("raw_images")
     def serve_sample_parallel(self, mesh, raw_images) -> Tuple[torch.Tensor, ...]:
         """Latency-oriented MC serving: the batch replicated, the T MC
         samples (or the N ensemble members) split over the mesh's 'data'

@@ -33,6 +33,7 @@ from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Effic
 from udal_tpu_torch.models.heads import (CLASS_PRIOR_BIAS, BoxNet, ClassNet,
                                          ConvTransposeSame, SegmentationHead)
 from udal_tpu_torch.ops.postprocess import per_class_nms, postprocess_global
+from udal_tpu_torch.utils import profiling
 
 # (class maps per level, box maps per level[, segmentation logits])
 Outputs = Tuple[Union[List[torch.Tensor], torch.Tensor], ...]
@@ -114,14 +115,17 @@ class EfficientDetNet(nn.Module):
 
     def features(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                  start_block: int = 0) -> List[torch.Tensor]:
-        """NCHW backbone input (or block ``start_block``'s input) → BiFPN maps."""
+        """NCHW backbone input (or block ``start_block``'s input) → BiFPN maps
+        (spans ``model.backbone`` and ``model.bifpn``)."""
         cfg = self.config
-        feats = list(self.backbone(x, masks, start_block)[cfg.min_level:cfg.max_level + 1])
-        for level in range(6, cfg.max_level + 1):
-            fs = self.feat_sizes[level]
-            feats.append(getattr(self, f"resample_p{level}")(
-                feats[-1], fs["height"], fs["width"]))
-        return self.fpn_cells(feats)
+        with profiling.span("model.backbone", batch=x.shape[0]):
+            feats = list(self.backbone(x, masks, start_block)[cfg.min_level:cfg.max_level + 1])
+        with profiling.span("model.bifpn"):
+            for level in range(6, cfg.max_level + 1):
+                fs = self.feat_sizes[level]
+                feats.append(getattr(self, f"resample_p{level}")(
+                    feats[-1], fs["height"], fs["width"]))
+            return self.fpn_cells(feats)
 
     def predict_heads(self, feats: List[torch.Tensor],
                       masks: Optional[ChannelDropout] = None) -> Outputs:
@@ -135,18 +139,31 @@ class EfficientDetNet(nn.Module):
             outs.append(self.seg_head(feats))
         return tuple(outs)
 
+    def head_outputs(self, feats: List[torch.Tensor], masks: Optional[ChannelDropout] = None,
+                     num_samples: Optional[int] = None, repeat: bool = False) -> Outputs:
+        """NCHW BiFPN maps → NHWC heads' outputs (span ``model.heads``). With
+        ``num_samples`` the maps are a t-major T·B batch (made here from maps
+        at B with ``repeat``) and the outputs have [T, B, ...] maps."""
+        batch = feats[0].shape[0] * (num_samples if repeat else 1)
+        with profiling.span("model.heads", batch=batch):
+            if repeat:
+                feats = [f.repeat(num_samples, 1, 1, 1) for f in feats]
+            outs = _nhwc(self.predict_heads(feats, masks))
+            return outs if num_samples is None else split_samples(
+                outs, num_samples, batch // num_samples)
+
     def forward(self, images: torch.Tensor,
                 masks: Optional[ChannelDropout] = None) -> Outputs:
         """NHWC images [B, H, W, 3] → NHWC outputs: (class, box) per level
         [, segmentation logits]."""
         x = images.permute(0, 3, 1, 2).contiguous()
-        return _nhwc(self.predict_heads(self.features(x, masks), masks))
+        return self.head_outputs(self.features(x, masks), masks)
 
     def forward_from_block1(self, x: torch.Tensor,
                             masks: Optional[ChannelDropout] = None) -> Outputs:
         """NCHW block-1 input → NHWC outputs: the per-sample part of the
         fast MC path (the stem and block 0 run once outside)."""
-        return _nhwc(self.predict_heads(self.features(x, masks, start_block=1), masks))
+        return self.head_outputs(self.features(x, masks, start_block=1), masks)
 
 
 def init_flax_style(model: EfficientDetNet, generator: torch.Generator) -> None:
@@ -215,16 +232,13 @@ def mc_forward(model: EfficientDetNet, images: torch.Tensor, num_samples: int,
     """
     from udal_tpu_torch.models.mc_fast import fast_mc_eligible, mc_forward_fast
 
-    b = images.shape[0]
     if head_only_mc(model.config):
         feats = model.features(images.permute(0, 3, 1, 2).contiguous())
-        feats = [f.repeat(num_samples, 1, 1, 1) for f in feats]
-        return split_samples(_nhwc(model.predict_heads(feats, masks)), num_samples, b)
+        return model.head_outputs(feats, masks, num_samples, repeat=True)
     if fast_mc_eligible(model.config, model):
         return mc_forward_fast(model, images, num_samples, masks)
     x = images.permute(0, 3, 1, 2).repeat(num_samples, 1, 1, 1)
-    outs = _nhwc(model.predict_heads(model.features(x, masks), masks))
-    return split_samples(outs, num_samples, b)
+    return model.head_outputs(model.features(x, masks), masks, num_samples)
 
 
 class EfficientDetModel(EfficientDetNet):

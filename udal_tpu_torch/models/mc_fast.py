@@ -21,9 +21,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from udal_tpu_torch.models.efficientdet import EfficientDetNet, Outputs, split_samples
+from udal_tpu_torch.models.efficientdet import EfficientDetNet, Outputs
 from udal_tpu_torch.models.efficientnet import ChannelDropout, activation_fn
 from udal_tpu_torch.ops.fused_dw import fold_bn, fused_depthwise
+from udal_tpu_torch.utils import profiling
 
 
 def fast_mc_eligible(cfg, model: EfficientDetNet) -> bool:
@@ -108,9 +109,10 @@ def mc_forward_fast(model: EfficientDetNet, images: torch.Tensor, num_samples: i
                     masks: ChannelDropout) -> Outputs:
     """MC-dropout forward with the shared prefix + block-0 fold: NHWC images
     → outputs with [T, B, H, W, C] maps. The fold's masks are drawn first,
-    then the per-sample sites in program order."""
-    b = images.shape[0]
-    x0, x0_mean = mc_shared_prefix(model, images)
-    x1 = folded_block0_all_samples(model, x0, x0_mean, model.config.mc_dropoutrate,
-                                   num_samples, drop=masks)
-    return split_samples(model.forward_from_block1(x1, masks), num_samples, b)
+    then the per-sample sites in program order. The prefix and the fold
+    are one ``model.backbone`` span, the blocks from 1 on another."""
+    with profiling.span("model.backbone", batch=images.shape[0]):
+        x0, x0_mean = mc_shared_prefix(model, images)
+        x1 = folded_block0_all_samples(model, x0, x0_mean, model.config.mc_dropoutrate,
+                                       num_samples, drop=masks)
+    return model.head_outputs(model.features(x1, masks, start_block=1), masks, num_samples)

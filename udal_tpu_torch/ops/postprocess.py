@@ -21,6 +21,7 @@ from udal_tpu_torch.ops import anchors as anchor_lib
 from udal_tpu_torch.ops import cuda_nms
 from udal_tpu_torch.ops import nms as nms_lib
 from udal_tpu_torch.ops.uncertainty import decode_uncert, mc_moments, sample_mean
+from udal_tpu_torch.utils import profiling
 
 CLASS_OFFSET = 1  # background is class 0 in the label map
 MAX_DETECTION_POINTS = anchor_lib.MAX_DETECTION_POINTS
@@ -211,33 +212,35 @@ def _scales(image_scales, boxes: torch.Tensor) -> torch.Tensor:
 def postprocess_global(config, cls_outputs, box_outputs, image_scales=None,
                        pre_nms_topk: int = 0, sample_group=None) -> Detections:
     """Global soft-NMS post-processing of per-level outputs → Detections
-    (``sample_group``: a sample axis split over a process group, ``pre_nms``)."""
-    pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk, sample_group)
-    res = _nms(config, pn["boxes"], torch.sigmoid(pn["scores_logits"]))
-    boxes = _gather(pn["boxes"], res.indices)
-    classes = _gather(pn["classes"], res.indices).to(boxes.dtype) + CLASS_OFFSET
-    sigma_al = _gather(pn["sigma_al"], res.indices)
-    sigma_mc = _gather(pn["sigma_mc"], res.indices)
+    (``sample_group``: a sample axis split over a process group, ``pre_nms``);
+    span ``post``."""
+    with profiling.span("post"):
+        pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk, sample_group)
+        res = _nms(config, pn["boxes"], torch.sigmoid(pn["scores_logits"]))
+        boxes = _gather(pn["boxes"], res.indices)
+        classes = _gather(pn["classes"], res.indices).to(boxes.dtype) + CLASS_OFFSET
+        sigma_al = _gather(pn["sigma_al"], res.indices)
+        sigma_mc = _gather(pn["sigma_mc"], res.indices)
 
-    # clip to input resolution then scale back to the original image
-    boxes = _clip(config, boxes)
-    if image_scales is not None:
-        s = _scales(image_scales, boxes)
-        boxes = boxes * s
-        if sigma_al is not None:
-            sigma_al = sigma_al * s
-        if sigma_mc is not None:
-            sigma_mc = sigma_mc * s
+        # clip to input resolution then scale back to the original image
+        boxes = _clip(config, boxes)
+        if image_scales is not None:
+            s = _scales(image_scales, boxes)
+            boxes = boxes * s
+            if sigma_al is not None:
+                sigma_al = sigma_al * s
+            if sigma_mc is not None:
+                sigma_mc = sigma_mc * s
 
-    # zero out invalid slots for determinism
-    m = res.valid[..., None].to(boxes.dtype)
-    sigma_cls = _gather(pn["sigma_cls"], res.indices)
-    return Detections(boxes=boxes * m, scores=res.scores * res.valid.to(boxes.dtype),
-                      classes=classes * m[..., 0], valid_len=res.valid_len,
-                      sigma_al=None if sigma_al is None else sigma_al * m,
-                      sigma_mc=None if sigma_mc is None else sigma_mc * m,
-                      sigma_cls=None if sigma_cls is None else sigma_cls * m,
-                      logits=_gather(pn["logits"], res.indices))
+        # zero out invalid slots for determinism
+        m = res.valid[..., None].to(boxes.dtype)
+        sigma_cls = _gather(pn["sigma_cls"], res.indices)
+        return Detections(boxes=boxes * m, scores=res.scores * res.valid.to(boxes.dtype),
+                          classes=classes * m[..., 0], valid_len=res.valid_len,
+                          sigma_al=None if sigma_al is None else sigma_al * m,
+                          sigma_mc=None if sigma_mc is None else sigma_mc * m,
+                          sigma_cls=None if sigma_cls is None else sigma_cls * m,
+                          logits=_gather(pn["logits"], res.indices))
 
 
 def per_class_nms(config, cls_outputs, box_outputs, image_scales=None,
@@ -249,25 +252,26 @@ def per_class_nms(config, cls_outputs, box_outputs, image_scales=None,
 
     As in the JAX package, only the boxes are scaled by ``image_scales``
     and zeroed at invalid slots: the σ outputs and logits are neither
-    scaled nor masked (``postprocess_global`` does both).
+    scaled nor masked (``postprocess_global`` does both). Span ``post``.
     """
-    pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk or MAX_DETECTION_POINTS)
-    h, w = anchor_lib.from_config(config).image_size
-    offset = float(max(h, w)) * 2.0
-    shifted = pn["boxes"] + pn["classes"][..., None].to(pn["boxes"].dtype) * offset
-    res = _nms(config, shifted, torch.sigmoid(pn["scores_logits"]))
+    with profiling.span("post"):
+        pn = pre_nms(config, cls_outputs, box_outputs, pre_nms_topk or MAX_DETECTION_POINTS)
+        h, w = anchor_lib.from_config(config).image_size
+        offset = float(max(h, w)) * 2.0
+        shifted = pn["boxes"] + pn["classes"][..., None].to(pn["boxes"].dtype) * offset
+        res = _nms(config, shifted, torch.sigmoid(pn["scores_logits"]))
 
-    boxes = _clip(config, _gather(pn["boxes"], res.indices))
-    classes = _gather(pn["classes"], res.indices).to(boxes.dtype) + CLASS_OFFSET
-    if image_scales is not None:
-        boxes = boxes * _scales(image_scales, boxes)
-    m = res.valid[..., None].to(boxes.dtype)
-    return Detections(boxes=boxes * m, scores=res.scores * m[..., 0],
-                      classes=classes * m[..., 0], valid_len=res.valid_len,
-                      sigma_al=_gather(pn["sigma_al"], res.indices),
-                      sigma_mc=_gather(pn["sigma_mc"], res.indices),
-                      sigma_cls=_gather(pn["sigma_cls"], res.indices),
-                      logits=_gather(pn["logits"], res.indices))
+        boxes = _clip(config, _gather(pn["boxes"], res.indices))
+        classes = _gather(pn["classes"], res.indices).to(boxes.dtype) + CLASS_OFFSET
+        if image_scales is not None:
+            boxes = boxes * _scales(image_scales, boxes)
+        m = res.valid[..., None].to(boxes.dtype)
+        return Detections(boxes=boxes * m, scores=res.scores * m[..., 0],
+                          classes=classes * m[..., 0], valid_len=res.valid_len,
+                          sigma_al=_gather(pn["sigma_al"], res.indices),
+                          sigma_mc=_gather(pn["sigma_mc"], res.indices),
+                          sigma_cls=_gather(pn["sigma_cls"], res.indices),
+                          logits=_gather(pn["logits"], res.indices))
 
 
 def generate_detections(config, cls_outputs, box_outputs, image_scales, image_ids,
