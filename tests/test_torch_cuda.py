@@ -5,12 +5,15 @@ JAX: ``python -m pytest tests/test_torch_cuda.py --noconftest -q``. Every
 test here carries the ``cuda`` marker and skips without a CUDA device.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from udal_tpu_torch.ops import cuda_nms, fused_dw, fused_mbconv, nms, packed  # noqa: E402
+from udal_tpu_torch.utils import profiling  # noqa: E402
 
 
 def random_batch(seed, n, b=2, tied=False, size=256):
@@ -926,17 +929,18 @@ def test_augment_variants_on_the_card_equal_the_cpu(cuda):
 @pytest.mark.cuda
 def test_collect_pool_on_the_card_launches_each_kernel_per_batch(no_tf32):
     """``collect_pool`` over three batches queued on the card: 1/15/1
-    launches of fused_dw / fused_expand_dw / soft-NMS a batch, and the pool
+    launches of fused_dw / fused_expand_dw / soft-NMS a batch (in a trace
+    of the card), and the pool
     the CPU driver gives, as sets of detections."""
     from udal_tpu_torch.apps import al_scoring
 
     frames = np.random.RandomState(9).randint(0, 256, (6, 96, 160, 3)).astype(np.uint8)
     batches = [(frames[i:i + 2], [f"f{i + j}" for j in range(2)]) for i in range(0, 6, 2)]
     driver = small_driver(no_tf32, {})
-    before = kernel_counts()
-    pool = al_scoring.collect_pool(driver, iter(batches), inflight=8)
-    torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (3, 45, 3)
+    with profiling.KernelLaunches() as launches:
+        pool = al_scoring.collect_pool(driver, iter(batches), inflight=8)
+    # the third batch replays the model step's CUDA graphs: counted on the card
+    assert launches.counts == (3, 45, 3)
     host = al_scoring.collect_pool(small_driver("cpu", {}), iter(batches))
     assert pool.names == host.names
     for i in range(pool.n_images):
@@ -1009,3 +1013,199 @@ def test_world_of_one_over_nccl_trains_and_serves_as_one_process(no_tf32):
         torch.backends.cudnn.deterministic = deterministic
         if info is not None:
             dist.destroy_process_group()
+
+
+# -- the model step replayed as CUDA graphs (apps/detect_graph.py) -----------
+
+BENCH_CONFIGS = Path(__file__).resolve().parents[1] / "bench_torch" / "configs"
+# the forwards a driver replays: a benchmark configuration and the overrides
+# that choose the forward; each with its launches a call
+FORWARDS = {
+    "kitti_mc_d0": ("kitti_mc_d0", {}, (1, 15, 1)),
+    "kitti_head_d0": ("kitti_head_d0", {}, (1, 15, 1)),
+    "deterministic": ("kitti_head_d0", dict(mc_dropout=False), (1, 15, 1)),
+    "mc_without_the_fold": ("kitti_mc_d0", dict(mc_fast_fold=False), (1, 15, 1)),
+    "ensemble": ("kitti_head_d0", dict(mc_dropout=False), (2, 30, 1)),
+}
+
+
+class KeptDraws:
+    """The driver's mask source passed through, every draw kept (as the
+    benchmark's ``KeptMasks`` keeps them)."""
+
+    def __init__(self, source):
+        self.source, self.kept = source, []
+
+    def draw(self, n, c, keep, device):
+        bits = self.source.draw(n, c, keep, device)
+        self.kept.append(bits)
+        return bits
+
+
+def bench_driver(device, config, seed=1, mc_seed=0, ensemble=False, **overrides):
+    """A benchmark configuration (bf16, T = 10, 7 classes) at 256x128 with
+    flax-style random weights from ``seed``; with ``ensemble``, two
+    members from ``seed`` and ``seed + 1``."""
+    import json
+
+    from udal_tpu_torch.apps.serving import ServingDriver
+    from udal_tpu_torch.config import get_detection_config
+    from udal_tpu_torch.models.ensemble import init_ensemble
+
+    spec = json.loads((BENCH_CONFIGS / f"{config}.json").read_text())
+    overrides = dict(spec["overrides"], image_size="256x128", **overrides)
+    if not ensemble:
+        return ServingDriver.create(spec["model_name"], seed=seed, device=device,
+                                    mc_seed=mc_seed, overrides=overrides)
+    cfg = get_detection_config(spec["model_name"])
+    cfg.override(overrides, allow_new_keys=True)
+    return ServingDriver(cfg, init_ensemble(cfg, 2, seed=seed)[1], device=device,
+                         mc_seed=mc_seed, ensemble=True)
+
+
+def forward_driver(device, forward, **kwargs):
+    config, overrides, _ = FORWARDS[forward]
+    return bench_driver(device, config, ensemble=forward == "ensemble", **overrides, **kwargs)
+
+
+def eager_packed(driver, images, scales):
+    """``_detect`` eagerly: the forward's stages, then the post-processing."""
+    from udal_tpu_torch.ops.postprocess import postprocess_global
+
+    with torch.inference_mode():
+        x = torch.as_tensor(images, device=driver.device)
+        s = torch.as_tensor(scales, device=driver.device)
+        outs = driver._forward(x.to(driver.dtype))
+        return postprocess_global(driver.config, outs[0], outs[1], image_scales=s).packed()
+
+
+def graph_inputs(i, b=2):
+    rng = np.random.RandomState(40 + i)
+    return (rng.uniform(-2, 2, (b, 128, 256, 3)).astype(np.float32),
+            np.full((b,), 1.5 + i, np.float32))
+
+
+def graph_pool_bytes():
+    """Bytes of the card's segments in a CUDA graph's private pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", sorted(FORWARDS))
+def test_replayed_serves_equal_eager_ones_bit_for_bit(cuda, forward):
+    """Four calls: eager, capture, two replays; each packed tuple equals the
+    eager forward's under the same masks, bit for bit, the mask sources
+    see the same draws, and each call launches the port's kernels as
+    many times as the forward has them, counted in a trace of the card."""
+    graphs, eager = forward_driver(cuda, forward), forward_driver(cuda, forward)
+    graphs.masks, eager.masks = KeptDraws(graphs.masks), KeptDraws(eager.masks)
+    for i in range(4):
+        with profiling.KernelLaunches() as launches:
+            got = graphs.serve_preprocessed(*graph_inputs(i))
+        assert launches.counts == FORWARDS[forward][2], i
+        assert launches.fast == launches.counts[0], i
+        want = eager_packed(eager, *graph_inputs(i))
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), i
+    assert graphs.graph_stats == dict(captures=1, replays=2, eager=1)
+    assert len(graphs.masks.kept) == len(eager.masks.kept)
+    assert (len(eager.masks.kept) > 0) == (forward not in ("deterministic", "ensemble"))
+    for g, w in zip(graphs.masks.kept, eager.masks.kept):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_detections_a_caller_holds_outlive_the_next_replay(cuda):
+    driver = bench_driver(cuda, "kitti_head_d0")
+    held = [driver.serve_detections_preprocessed(*graph_inputs(i)) for i in range(4)]
+    copies = [[t.clone() for t in d.packed()] for d in held]
+    for i in range(4, 6):
+        driver.serve_detections_preprocessed(*graph_inputs(i))
+    torch.cuda.synchronize()
+    for d, c in zip(held, copies):
+        for g, w in zip(d.packed(), c):
+            assert torch.equal(g, w)
+    assert not torch.equal(held[2].boxes, held[3].boxes)
+    assert driver.graph_stats == dict(captures=1, replays=4, eager=1)
+
+
+@pytest.mark.cuda
+def test_weights_loaded_after_the_capture_reach_the_replay(cuda):
+    """``load_state_dict`` + ``prepare_inference`` write into the tensors the
+    graphs read: the next call is a replay with a fresh driver's bits."""
+    from udal_tpu_torch.models.efficientnet import ChannelDropout
+
+    driver = bench_driver(cuda, "kitti_mc_d0")
+    for i in range(3):
+        driver.serve_preprocessed(*graph_inputs(i))
+    other = bench_driver(cuda, "kitti_mc_d0", seed=2)
+    driver.model.load_state_dict(other.model.state_dict())
+    driver.model.backbone.prepare_inference()
+    for d in (driver, other):
+        d.masks = ChannelDropout(torch.Generator(device=cuda).manual_seed(9))
+    got = driver.serve_preprocessed(*graph_inputs(7))
+    assert driver.graph_stats == dict(captures=1, replays=2, eager=1)
+    for g, w in zip(got, eager_packed(other, *graph_inputs(7))):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_a_dropped_driver_gives_its_graphs_memory_back(cuda):
+    """No cycle holds a driver: ``del`` frees its graphs and their pool
+    with the cycle collector off, and ``empty_cache`` returns the pool's
+    segments to the card (a first driver warms the process's caches)."""
+    import gc
+
+    def used():
+        driver = bench_driver(cuda, "kitti_mc_d0")
+        for i in range(3):
+            driver.serve_preprocessed(*graph_inputs(i))
+        torch.cuda.synchronize()
+        assert driver.graph_stats["captures"] == 1
+        return driver
+
+    used()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before, pools_before = torch.cuda.memory_reserved(), graph_pool_bytes()
+    driver = used()
+    held, pools_held = torch.cuda.memory_reserved(), graph_pool_bytes()
+    gc.disable()
+    try:
+        del driver
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        after, pools_after = torch.cuda.memory_reserved(), graph_pool_bytes()
+    finally:
+        gc.enable()
+    print(f"reserved {before} -> {held} (graph pool {pools_held}) -> {after} bytes")
+    assert pools_held > pools_before and held - before >= pools_held - pools_before
+    assert pools_after == pools_before
+    assert after - before <= 2 * 2**20
+
+
+@pytest.mark.cuda
+def test_a_traced_replay_shows_its_kernels_and_spans(cuda):
+    """Under torch.profiler a replayed call's device kernels are traced
+    (the three of the port's among them, as many as the eager call's
+    within 2%) and its root span says ``replay``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    driver = bench_driver(cuda, "kitti_head_d0")
+    kernels = []
+    for i in range(4):
+        profiling.clear_spans()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            driver.serve_preprocessed(*graph_inputs(i))
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels.append(names)
+        roots = [s for s in profiling.spans() if s.parent is None]
+        assert [r.attrs["graph"] for r in roots] == [["eager", "capture", "replay", "replay"][i]]
+    print("device operations a call (eager, capture, replay, replay):",
+          [len(k) for k in kernels])
+    for part in ("expand_dw_tc_kernel", "fused_dw", "soft_nms"):
+        assert any(part in n for n in kernels[3]), part
+    assert abs(len(kernels[3]) - len(kernels[0])) <= 0.02 * len(kernels[0])

@@ -94,7 +94,7 @@ def test_one_root_a_call_and_its_stages_in_order(servers, path):
     assert root.parent is None and root.root == root.id
     assert root.attrs == dict(entry="serve" if path in ("serve", "mc_fast")
                               else "serve_preprocessed_uint8",
-                              batch=B, samples=1 if which == "det" else 3)
+                              batch=B, samples=1 if which == "det" else 3, graph="eager")
     assert all(s.parent == root.id and s.root == root.id for s in spans[1:])
     assert all(a.end_ns <= b.start_ns for a, b in zip(spans[1:], spans[2:]))
     assert root.start_ns <= spans[1].start_ns and spans[-1].end_ns <= root.end_ns

@@ -6,7 +6,9 @@ block-0 fold, or the backbone once and the heads T times, then T samples
 as one T·B batch; each MBConv's front half one fused call) or deep-ensemble
 forward → global uncertainty post-processing with soft-NMS. The fused
 depthwise, fused expand + depthwise and soft-NMS run as CUDA kernels when
-the tensors live on a GPU. Eager PyTorch under ``inference_mode``.
+the tensors live on a GPU. Eager PyTorch under ``inference_mode``; on a
+card a shape's later calls replay the model step as CUDA graphs
+(``apps/detect_graph.py``).
 
 ``create_ensemble`` builds a deep-ensemble driver from the members'
 training checkpoints (``utils/checkpoint.py``). The entries follow the
@@ -26,16 +28,17 @@ from __future__ import annotations
 import functools
 import inspect
 import time
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from udal_tpu_torch.apps.detect_graph import DetectGraphs
 from udal_tpu_torch.config import Config, get_detection_config, parse_image_size
 from udal_tpu_torch.models.efficientdet import (EfficientDetNet, init_flax_style,
-                                                mc_forward, preprocess_images)
+                                                preprocess_images)
 from udal_tpu_torch.models.efficientnet import ChannelDropout, ShardedDropout
-from udal_tpu_torch.models.ensemble import (ensemble_forward, stack_variables,
-                                            unstack_variables)
+from udal_tpu_torch.models.ensemble import stack_variables, unstack_variables
+from udal_tpu_torch.models.stages import Stage, forward_kind, forward_stages, run_stages
 from udal_tpu_torch.ops.image_ops import warp_resize_batch
 from udal_tpu_torch.ops.postprocess import Detections, postprocess_global
 from udal_tpu_torch.parallel.collectives import all_gather
@@ -58,6 +61,12 @@ def _entry(frames: str):
                 return fn(self, *args, **kwargs)
         return entry
     return wrap
+
+
+def _post(config: Config, outs, scales: Optional[torch.Tensor]) -> Detections:
+    """The global post-processing of the network's outputs (``_detect``'s
+    last stage)."""
+    return postprocess_global(config, outs[0], outs[1], image_scales=scales)
 
 
 class ServingDriver:
@@ -99,6 +108,9 @@ class ServingDriver:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(mc_seed)
         self.masks = ChannelDropout(generator)
+        self._graphs = DetectGraphs()
+        # calls of the model step eager, captured and replayed as CUDA graphs
+        self.graph_stats = self._graphs.stats
         # the uint8 entries' normalisation, on the device once
         self._mean, self._std = (torch.tensor(v, dtype=torch.float32, device=self.device)
                                  for v in (config.mean_rgb, config.stddev_rgb))
@@ -148,22 +160,40 @@ class ServingDriver:
             return self.num_members
         return int(self.config.mc_dropoutsamp) if self._mc() else 1
 
+    def _forward_kind(self) -> str:
+        """The forward a serve runs (``models/stages.py``)."""
+        return forward_kind(self.model, self._mc(), self.ensemble)
+
+    def _forward_stages(self, batch: int, members=None, samples=None) -> List[Stage]:
+        """The stages of the network's forward of ``batch`` images: the
+        ensemble's ``members`` (all by default), or ``samples`` MC samples
+        (the config's T by default), or one deterministic pass."""
+        if members is None or not self.ensemble:
+            members = self.members
+        return forward_stages(members, self._forward_kind(), batch,
+                              int(samples or self.config.mc_dropoutsamp))
+
+    def _detect_stages(self, batch: int) -> List[Stage]:
+        """``_detect``'s stages for ``batch`` images: the forward's, then the
+        global post-processing (span ``post``), from the state entries
+        ``images`` (NHWC, compute dtype), ``scales`` and ``masks`` (a mask
+        source) to ``detections``."""
+        return self._forward_stages(batch) + [
+            Stage("post", {}, ("outs", "scales"), "detections",
+                  functools.partial(_post, self.config))]
+
     def _forward(self, images: torch.Tensor, masks=None, members=None, samples=None):
-        """The network's outputs: the ensemble's ``members`` (all by
-        default), or ``samples`` MC samples (the config's T by default) with
-        dropout from ``masks`` (the driver's source by default), or one
-        deterministic pass."""
-        cfg = self.config
-        if self.ensemble:
-            return ensemble_forward(self.members if members is None else members, images)
-        if self._mc():
-            return mc_forward(self.model, images, samples or cfg.mc_dropoutsamp,
-                              self.masks if masks is None else masks)
-        return self.model(images)
+        """The network's outputs of ``_forward_stages``, with dropout from
+        ``masks`` (the driver's source by default)."""
+        state = dict(images=images, masks=self.masks if masks is None else masks)
+        return run_stages(self._forward_stages(images.shape[0], members, samples), state)
 
     def _detect(self, images: torch.Tensor, scales: torch.Tensor, masks=None) -> Detections:
-        outs = self._forward(images.to(self.dtype), masks)
-        return postprocess_global(self.config, outs[0], outs[1], image_scales=scales)
+        """The model step: the forward's stages and the global
+        post-processing (``detect_graph``: on a card captured as CUDA graphs
+        at a shape's second call and replayed after), with dropout from
+        ``masks`` (the driver's source by default)."""
+        return self._graphs.detect(self, images, scales, self.masks if masks is None else masks)
 
     def _upload(self, frames) -> torch.Tensor:
         """The frames on the device (span ``serve.upload``: the bytes taken

@@ -113,19 +113,30 @@ class EfficientDetNet(nn.Module):
                                              num_levels, cfg.act_type)
         self.eval()
 
+    def backbone_features(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
+                          start_block: int = 0) -> List[torch.Tensor]:
+        """NCHW backbone input (or block ``start_block``'s input) → the
+        backbone's maps from ``min_level`` on."""
+        cfg = self.config
+        return list(self.backbone(x, masks, start_block)[cfg.min_level:cfg.max_level + 1])
+
+    def bifpn(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The backbone's maps → BiFPN maps: the extra levels resampled from
+        the last, then the cells."""
+        feats = list(feats)
+        for level in range(6, self.config.max_level + 1):
+            fs = self.feat_sizes[level]
+            feats.append(getattr(self, f"resample_p{level}")(feats[-1], fs["height"], fs["width"]))
+        return self.fpn_cells(feats)
+
     def features(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                  start_block: int = 0) -> List[torch.Tensor]:
         """NCHW backbone input (or block ``start_block``'s input) → BiFPN maps
         (spans ``model.backbone`` and ``model.bifpn``)."""
-        cfg = self.config
         with profiling.span("model.backbone", batch=x.shape[0]):
-            feats = list(self.backbone(x, masks, start_block)[cfg.min_level:cfg.max_level + 1])
+            feats = self.backbone_features(x, masks, start_block)
         with profiling.span("model.bifpn"):
-            for level in range(6, cfg.max_level + 1):
-                fs = self.feat_sizes[level]
-                feats.append(getattr(self, f"resample_p{level}")(
-                    feats[-1], fs["height"], fs["width"]))
-            return self.fpn_cells(feats)
+            return self.bifpn(feats)
 
     def predict_heads(self, feats: List[torch.Tensor],
                       masks: Optional[ChannelDropout] = None) -> Outputs:
@@ -228,17 +239,13 @@ def mc_forward(model: EfficientDetNet, images: torch.Tensor, num_samples: int,
     With dropout in the heads only, the backbone and BiFPN run once at B
     and their maps are repeated t-major for the heads at T·B. Otherwise
     takes the shared-prefix + block-0 fold (``mc_fast.py``) where it
-    applies exactly, else runs the T samples as one t-major T·B batch.
+    applies exactly, else runs the T samples as one t-major T·B batch: the
+    stages of ``models/stages.py``.
     """
-    from udal_tpu_torch.models.mc_fast import fast_mc_eligible, mc_forward_fast
+    from udal_tpu_torch.models.stages import forward_kind, forward_stages, run_stages
 
-    if head_only_mc(model.config):
-        feats = model.features(images.permute(0, 3, 1, 2).contiguous())
-        return model.head_outputs(feats, masks, num_samples, repeat=True)
-    if fast_mc_eligible(model.config, model):
-        return mc_forward_fast(model, images, num_samples, masks)
-    x = images.permute(0, 3, 1, 2).repeat(num_samples, 1, 1, 1)
-    return model.head_outputs(model.features(x, masks), masks, num_samples)
+    stages = forward_stages([model], forward_kind(model, mc=True), images.shape[0], num_samples)
+    return run_stages(stages, dict(images=images, masks=masks))
 
 
 class EfficientDetModel(EfficientDetNet):

@@ -352,6 +352,11 @@ class SqueezeExcite(nn.Module):
         return torch.sigmoid(se) * x
 
 
+def _fold_tensors(fold: Dict) -> List[torch.Tensor]:
+    """A fold's tensors in order (``we_split``'s pair flattened)."""
+    return [t for v in fold.values() for t in (v if isinstance(v, tuple) else (v,))]
+
+
 class MBConvBlock(nn.Module):
     """Mobile inverted residual bottleneck with optional SE + MC dropout."""
 
@@ -414,8 +419,19 @@ class MBConvBlock(nn.Module):
 
     def prepare_inference(self) -> None:
         """Fold once, after the weights are loaded and the module is on its
-        device; a later ``load_state_dict`` or ``to`` calls for a new fold."""
-        self.folded = self.fold()
+        device; a later ``load_state_dict`` or ``to`` calls for a new fold.
+        A fold of the same shapes is written into the tensors of the one it
+        replaces, which a captured CUDA graph reads by address."""
+        fold, old = self.fold(), self.folded
+        new_t = _fold_tensors(fold)
+        old_t = _fold_tensors(old) if old is not None and old.keys() == fold.keys() else []
+        if [(t.shape, t.dtype, t.device) for t in old_t] != \
+                [(t.shape, t.dtype, t.device) for t in new_t]:
+            self.folded = fold
+            return
+        with torch.inference_mode():     # the fold may have been made in inference mode
+            for dst, src in zip(old_t, new_t):
+                dst.copy_(src)
 
     def train(self, mode: bool = True) -> "MBConvBlock":
         """Entering or leaving train mode drops the fold: an optimizer moves

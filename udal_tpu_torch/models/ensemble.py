@@ -15,6 +15,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from udal_tpu_torch.models.efficientdet import EfficientDetNet, Outputs, init_flax_style
+from udal_tpu_torch.models.stages import forward_stages, run_stages
 
 
 def stack_variables(state_dicts: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -31,10 +32,7 @@ def unstack_variables(stacked: Mapping[str, torch.Tensor]) -> List[Dict[str, tor
 def ensemble_forward(members: Sequence[EfficientDetNet], images: torch.Tensor) -> Outputs:
     """Each member's deterministic forward of NHWC ``images``, stacked:
     outputs with [N, B, H, W, C] maps."""
-    outs = [m(images) for m in members]
-    return tuple([torch.stack([o[j][level] for o in outs]) for level in range(len(first))]
-                 if isinstance(first, list) else torch.stack([o[j] for o in outs])
-                 for j, first in enumerate(outs[0]))
+    return run_stages(forward_stages(members, "ensemble", images.shape[0]), dict(images=images))
 
 
 def init_ensemble(config, num_members: int, generators: Optional[Sequence[torch.Generator]] = None,

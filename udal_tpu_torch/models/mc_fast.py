@@ -21,10 +21,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from udal_tpu_torch.models.efficientdet import EfficientDetNet, Outputs
+from udal_tpu_torch.models.efficientdet import EfficientDetNet
 from udal_tpu_torch.models.efficientnet import ChannelDropout, activation_fn
 from udal_tpu_torch.ops.fused_dw import fold_bn, fused_depthwise
-from udal_tpu_torch.utils import profiling
 
 
 def fast_mc_eligible(cfg, model: EfficientDetNet) -> bool:
@@ -105,14 +104,10 @@ def folded_block0_all_samples(model: EfficientDetNet, x0: torch.Tensor,
     return y.transpose(0, 1).reshape(t * b, co, h, w)
 
 
-def mc_forward_fast(model: EfficientDetNet, images: torch.Tensor, num_samples: int,
-                    masks: ChannelDropout) -> Outputs:
-    """MC-dropout forward with the shared prefix + block-0 fold: NHWC images
-    → outputs with [T, B, H, W, C] maps. The fold's masks are drawn first,
-    then the per-sample sites in program order. The prefix and the fold
-    are one ``model.backbone`` span, the blocks from 1 on another."""
-    with profiling.span("model.backbone", batch=images.shape[0]):
-        x0, x0_mean = mc_shared_prefix(model, images)
-        x1 = folded_block0_all_samples(model, x0, x0_mean, model.config.mc_dropoutrate,
-                                       num_samples, drop=masks)
-    return model.head_outputs(model.features(x1, masks, start_block=1), masks, num_samples)
+def block1_input(model: EfficientDetNet, images: torch.Tensor, num_samples: int,
+                 masks: ChannelDropout) -> torch.Tensor:
+    """The shared prefix at B and the block-0 fold of all samples: NHWC
+    images → block 1's input [T·B, Co, H, W], t-major."""
+    x0, x0_mean = mc_shared_prefix(model, images)
+    return folded_block0_all_samples(model, x0, x0_mean, model.config.mc_dropoutrate,
+                                     num_samples, drop=masks)

@@ -44,6 +44,7 @@ class Anchors:
         self.feat_sizes = get_feat_sizes(image_size, max_level)
         self.boxes_np = self._generate_boxes()
         self._on_device: Dict[torch.device, torch.Tensor] = {}
+        self._limits: Dict[Tuple[torch.device, torch.dtype], torch.Tensor] = {}
 
     def boxes(self, device) -> torch.Tensor:
         """The anchor tensor on `device` (copied there once)."""
@@ -51,6 +52,15 @@ class Anchors:
         if device not in self._on_device:
             self._on_device[device] = torch.from_numpy(self.boxes_np).to(device)
         return self._on_device[device]
+
+    def clip_limit(self, device, dtype: torch.dtype) -> torch.Tensor:
+        """[h, w, h, w] of the input resolution on `device` in `dtype`
+        (copied there once), the upper bound boxes are clipped to."""
+        key = (torch.device(device), dtype)
+        if key not in self._limits:
+            h, w = self.image_size
+            self._limits[key] = torch.tensor([h, w, h, w], dtype=dtype, device=key[0])
+        return self._limits[key]
 
     def get_anchors_per_location(self) -> int:
         return self.num_scales * len(self.aspect_ratios)

@@ -199,10 +199,10 @@ def _gather(t: Optional[torch.Tensor], indices: torch.Tensor) -> Optional[torch.
 
 
 def _clip(config, boxes: torch.Tensor) -> torch.Tensor:
-    """Boxes clipped to the input resolution."""
-    h, w = anchor_lib.from_config(config).image_size
+    """Boxes clipped to the input resolution (the limit cached on the
+    device: no host copy between the network's outputs and the detections)."""
     return torch.minimum(torch.clamp_min(boxes, 0.0),
-                         torch.tensor([h, w, h, w], dtype=boxes.dtype, device=boxes.device))
+                         anchor_lib.from_config(config).clip_limit(boxes.device, boxes.dtype))
 
 
 def _scales(image_scales, boxes: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Port of ``udal_tpu/utils/profiling.py``: ``trace`` records a
 writes it as a Chrome trace JSON under ``logdir``, readable in
 ``chrome://tracing`` or Perfetto (no TensorBoard plugin needed), with the
 program's spans on a row of their own; ``device_memory_stats`` gives each
-card's allocated bytes.
+card's allocated bytes; ``KernelLaunches`` counts the port's kernels in a
+trace of the card.
 
 ``span(name, **attrs)`` times one stage of the serve path where it runs
 (``SPANS`` names each stage and the benchmark metric that reads it). It
@@ -30,16 +31,19 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.autograd import DeviceType
 from torch.autograd import profiler as _autograd_profiler
 
 # each span the program opens, and the benchmark metric that reads it
 # (``bench_torch/metrics/``); ``device.idle_in_dispatch.serve`` reads the
-# markers of the ``model.*`` spans and of ``post``
+# markers of the ``model.*`` spans and of ``post``, ``model.graph_replay_share``
+# the ``graph`` attribute of the ``serve`` root (``annotate``)
 SPANS = {
     "serve": "serve.host_wait_ms",
     "serve.upload": "serve.upload_gbps",
@@ -51,6 +55,12 @@ SPANS = {
 }
 MAX_SPANS = 65536
 MARKER = "udal:"
+# the port's kernels by the names a trace of the card gives them, for each
+# wrapper's launch counter: the fused depthwise (fast path, general path),
+# the fused expand + depthwise (bf16, f32), soft-NMS
+KERNELS = {"fused_dw": ("fused_dw_rows_kernel", "fused_dw_kernel"),
+           "fused_expand_dw": ("expand_dw_tc_kernel", "fused_expand_dw_kernel"),
+           "soft_nms": ("soft_nms_kernel",)}
 
 
 @dataclasses.dataclass(eq=False)
@@ -119,6 +129,17 @@ def span(name: str, **attrs):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Recording(name, attrs)
+
+
+def annotate(name: str, **attrs) -> None:
+    """Set ``attrs`` on the innermost recording span called ``name``; nothing
+    where none is open or no profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    for s in reversed(getattr(_THREAD, "stack", ())):
+        if s.name == name:
+            s.attrs.update(attrs)
+            return
 
 
 def spans() -> List[Span]:
@@ -192,3 +213,55 @@ def device_memory_stats() -> Dict[str, float]:
         return {}
     return {f"cuda:{i}": float(torch.cuda.memory_allocated(i))
             for i in range(torch.cuda.device_count())}
+
+
+class KernelLaunches:
+    """The port's kernels launched on the card from ``start()`` to
+    ``stop()`` (or in a ``with`` block), read from a ``torch.profiler``
+    trace of CUDA activity: ``counts`` is (fused_dw, fused_expand_dw,
+    soft_nms) as ``KERNELS`` names them, ``fast`` the fused depthwise's
+    fast-path launches. A replayed CUDA graph launches its kernels without
+    their wrappers, whose counters see the eager and captured calls alone;
+    the trace sees every launch."""
+
+    # seconds of an idle card on each side of the traced work: the profiler
+    # drops a kernel whose time on the card's clock falls outside its
+    # window, and that clock may stray from the host's over a long process
+    MARGIN_S = 0.05
+
+    def __init__(self):
+        self.counts, self.fast, self._prof = (0, 0, 0), 0, None
+
+    def start(self) -> "KernelLaunches":
+        """Start a trace (ending one that runs); without a card, count 0."""
+        self.stop()
+        self.counts, self.fast = (0, 0, 0), 0
+        if torch.cuda.is_available():
+            self._prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            self._prof.start()
+            torch.cuda.synchronize()
+            time.sleep(self.MARGIN_S)
+        return self
+
+    def stop(self) -> "KernelLaunches":
+        """End the trace (if one runs) and count its kernels."""
+        if self._prof is None:
+            return self
+        torch.cuda.synchronize()
+        time.sleep(self.MARGIN_S)
+        prof, self._prof = self._prof, None
+        prof.stop()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+        def launched(kernel: str) -> int:
+            return sum(1 for n in names if re.search(rf"\b{kernel}\b", n))
+
+        self.counts = tuple(sum(launched(k) for k in ks) for ks in KERNELS.values())
+        self.fast = launched(KERNELS["fused_dw"][0])
+        return self
+
+    __enter__ = start
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
