@@ -1209,3 +1209,83 @@ def test_a_traced_replay_shows_its_kernels_and_spans(cuda):
     for part in ("expand_dw_tc_kernel", "fused_dw", "soft_nms"):
         assert any(part in n for n in kernels[3]), part
     assert abs(len(kernels[3]) - len(kernels[0])) <= 0.02 * len(kernels[0])
+
+
+def b7_blocks(stem_hw=(384, 768)):
+    """(block args, input channels, input rows, input columns) of each of
+    EfficientNet-B7's 55 blocks at d7x's 1536x768 canvas (the stem at
+    stride 2)."""
+    from udal_tpu_torch.models.efficientnet import backbone_spec, block_input_sizes
+
+    spec = backbone_spec("efficientnet-b7")
+    out, cin = [], spec.stem_filters
+    for a, h, w in block_input_sizes(spec, *stem_hw):
+        out.append((a, cin, h, w))
+        cin = a.output_filters
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [0, 1])
+def test_fused_dw_at_b7s_expand_ratio_one_blocks(cuda, block):
+    """B7's four e=1 blocks (64→32, then 32→32 with the identity skip)
+    at d7x's 384x768 stem output, batch 8, bf16: the fast path, within the
+    bf16 check of ``test_fused_dw_kernel_matches_plain_bf16``."""
+    a, cin, h, w = b7_blocks()[block]
+    assert a.expand_ratio == 1 and (cin, h, w) == ((64, 384, 768) if block == 0
+                                                   else (32, 384, 768))
+    x, taps, scale, bias, mask = dw_operands(block, 8, cin, h, w, 3, cuda, torch.bfloat16)
+    want_y, want_m = fused_dw.fused_depthwise_plain(x, taps, scale, bias, mask, 1, "swish", True)
+    fast = fused_dw.path_launches["fast"]
+    got_y, got_m = fused_dw.fused_depthwise(x, taps, scale, bias, mask, 1, "swish", True)
+    torch.cuda.synchronize()
+    assert fused_dw.path_launches["fast"] == fast + 1
+    assert_bf16_close(got_y, want_y, 1, 0.01)
+    torch.testing.assert_close(got_m, want_m, atol=1e-5, rtol=1e-5)
+
+
+# the distinct (Cin, Ce, k, s, H, W) of B7's 51 expanding blocks at d7x's canvas
+B7_EXPAND = sorted({(cin, a.input_filters * a.expand_ratio, a.kernel_size, a.strides[0], h, w)
+                    for a, cin, h, w in b7_blocks() if a.expand_ratio != 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,ce,k,s,h,w", B7_EXPAND)
+def test_fused_expand_dw_tc_matches_plain_at_b7_blocks(cuda, cin, ce, k, s, h, w):
+    """The bf16 kernel at every expanding block shape of B7 at its d7x
+    size (K up to 640, Ce up to 3840), batch 2, with the tolerance of
+    ``test_fused_expand_dw_tc_matches_plain_at_d0_blocks``."""
+    x, we, b0, m1, wd, b1, m2 = expand_operands(cin, 2, cin, ce, h, w, k, cuda, torch.bfloat16)
+    want = fused_mbconv.fused_expand_dw_plain(x, we, b0, m1, wd, b1, m2, s, k)
+    before = fused_mbconv.launches
+    got = fused_mbconv.fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, s, k, "swish",
+                                            fused_mbconv.split_weights(we))
+    torch.cuda.synchronize()
+    assert fused_mbconv.launches == before + 1
+    assert_bf16_close(got[0], want[0], 2, 1)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-3,
+                               atol=1e-3 * want[1].abs().max().item())
+
+
+@pytest.mark.cuda
+def test_d7x_serve_launches_4_51_1_from_a_trace(cuda):
+    """EfficientDet-d7x at 1536x768 (the benchmark's bdd_head_d7x overrides,
+    head-only MC, T = 10), batch 2: a replayed serve launches B2 four
+    times (its fast path), B3 51 times and soft-NMS once, read from a
+    trace of the card."""
+    import json
+
+    from udal_tpu_torch.apps.serving import ServingDriver
+
+    spec = json.loads((BENCH_CONFIGS / "bdd_head_d7x.json").read_text())
+    driver = ServingDriver.create(spec["model_name"], seed=1, device=cuda,
+                                  overrides=spec["overrides"])
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn((2, 768, 1536, 3), generator=g).to(cuda)
+    scales = torch.ones(2, device=cuda)
+    for _ in range(3):
+        driver.serve_preprocessed(images, scales)
+    with profiling.KernelLaunches() as launches:
+        driver.serve_preprocessed(images, scales)
+    assert driver.graph_stats == dict(captures=1, replays=2, eager=1)
+    assert launches.counts == (4, 51, 1) and launches.fast == 4

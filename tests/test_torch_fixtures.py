@@ -52,18 +52,19 @@ SEGMENTATION = dict(heads=["object_detection", "segmentation"])
 _SHAPES = {}
 
 
-def flax_shapes(jax_cfg):
-    """The flax variable tree's shapes, traced once per configuration."""
+def flax_shapes(jax_cfg, image: int = IMAGE):
+    """The flax variable tree's shapes, traced once per configuration, on
+    an ``image`` x ``image`` input (the configuration's canvas)."""
     key = repr(sorted(jax_cfg.as_dict().items()))
     if key not in _SHAPES:
         model = JaxNet(jax_cfg)
         _SHAPES[key] = jax.eval_shape(lambda: model.init(
-            {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, IMAGE, IMAGE, 3)),
+            {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, image, image, 3)),
             train=False))
     return _SHAPES[key]
 
 
-def random_variables(jax_cfg, seed: int = 0) -> dict:
+def random_variables(jax_cfg, seed: int = 0, image: int = IMAGE) -> dict:
     """{'params', 'batch_stats'} as nested dicts of float32 numpy arrays,
     drawn from ``seed``. Kernels at lecun-normal scale keep the activations
     of the random network O(1) (He scale lets some seeds grow them to 1e3,
@@ -82,7 +83,7 @@ def random_variables(jax_cfg, seed: int = 0) -> dict:
             v = rng.normal(0.0, 0.1, shape)
         return np.asarray(v, np.float32)
 
-    tree = jax.tree_util.tree_map_with_path(draw, flax_shapes(jax_cfg))
+    tree = jax.tree_util.tree_map_with_path(draw, flax_shapes(jax_cfg, image))
     return jax.tree_util.tree_map(np.asarray, {k: dict(v) for k, v in tree.items()})
 
 

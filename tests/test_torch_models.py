@@ -131,3 +131,37 @@ def test_random_init_follows_flax_initializers():
     assert torch.equal(model.fpn_cells.cell_0.fnode4.edge_weights, torch.ones(3))
     bn = model.fpn_cells.cell_0.fnode4.bn
     assert torch.equal(bn.running_var, torch.ones(64)) and torch.equal(bn.weight, torch.ones(64))
+
+
+def test_sum_fusion_over_six_levels_matches():
+    """d7x's topology at d0's widths: sum fusion (no edge weights) and a
+    six-level pyramid with P8 pooled from P7, six per-level tower
+    BatchNorms, on a 256x256 canvas (P8 1x1), two cells and two repeats;
+    the whole network and each BiFPN output against the flax modules."""
+    extra = dict(image_size="256x256", fpn_weight_method="sum", max_level=8,
+                 fpn_cell_repeats=2, box_class_repeats=2)
+    jax_cfg, torch_cfg = configs(extra=extra)
+    variables = random_variables(jax_cfg, seed=3, image=256)
+    assert not any("edge_weights" in str(path) for path, _ in
+                   jax.tree_util.tree_leaves_with_path(variables["params"]))
+    images = np.random.RandomState(4).uniform(-2.0, 2.0, (2, 256, 256, 3)).astype(np.float32)
+    (cls, box), state = JaxNet(jax_cfg).apply(
+        variables, jnp.asarray(images), False,
+        capture_intermediates=lambda mdl, name: name == "__call__" and mdl.name == "fpn_cells",
+        mutable=["intermediates"])
+    model = torch_model(torch_cfg, variables)
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(v.shape)) for v in jax.tree_util.tree_leaves(variables["params"]))
+    with torch.inference_mode():
+        feats = model.features(nchw(images))
+        got_cls, got_box = model(torch.from_numpy(images))
+    want = state["intermediates"]["fpn_cells"]["__call__"][0]
+    assert len(want) == 6
+    assert [tuple(f.shape[2:]) for f in feats] == [(32, 32), (16, 16), (8, 8), (4, 4),
+                                                  (2, 2), (1, 1)]
+    for g, w in zip(feats, want):
+        assert_close_nhwc(g, w)
+    assert len(got_cls) == len(cls) == 6
+    for g, w in zip(got_cls + got_box, list(cls) + list(box)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=RTOL)

@@ -109,6 +109,11 @@ class FakeGraphs:
         _copy_into(out, fn())
         _set_launch_counts(counts)
 
+    def pool_bytes(self, pool):
+        """A pool's bytes: 2 MiB a capture so far."""
+        assert pool is self.pools[-1]
+        return (2 << 20) * self.captured
+
 
 def _driver(kind, seed=7, backend=None, state=None):
     overrides = dict(SMALL, **KINDS[kind])
@@ -276,6 +281,12 @@ def test_eager_then_capture_then_replay_in_the_serve_span():
     last = [s.name for s in profiling.spans() if s.root == roots[-1].id][1:]
     assert last == ["serve.upload", "serve.prep", "model.backbone", "model.bifpn",
                     "model.heads", "post"]
+    # the pool's bytes on the roots once it exists: eager calls have none
+    held = driver._graphs.backend.captured * (2 << 20)      # one graph a stage: 4 stages
+    assert held == 4 * (2 << 20)
+    assert [r.attrs.get("pool_bytes") for r in roots] == [None] + [held] * 3
+    pool = harness.module("metrics", "serve.graph_pool_gib")
+    assert pool.read(dict(kind="serve", calls=4)) == pytest.approx(held / 2**30)
     reader = harness.module("metrics", "model.graph_replay_share")
     assert reader.UNIT == "%"
     assert reader.read(dict(kind="serve", calls=4)) == pytest.approx(50.0)

@@ -100,6 +100,8 @@ def test_one_root_a_call_and_its_stages_in_order(servers, path):
     assert root.start_ns <= spans[1].start_ns and spans[-1].end_ns <= root.end_ns
     heads = next(s for s in spans if s.name == "model.heads")
     assert heads.attrs["batch"] == (B if which == "det" else 3 * B)
+    bifpn = next(s for s in spans if s.name == "model.bifpn")
+    assert heads.attrs["levels"] == bifpn.attrs["levels"] == 5      # d0: P3-P7
 
 
 @pytest.mark.parametrize("kind", ["numpy", "tensor"])

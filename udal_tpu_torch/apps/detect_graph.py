@@ -31,6 +31,11 @@ body may open the same span itself (``head_outputs``,
   replay launches the kernels without their wrappers, so the wrappers'
   launch counters count the eager and captured calls alone.
 
+Once the pool exists, a call under a profiler sets the root ``serve``
+span's ``pool_bytes``: the bytes of the card's memory the pool holds, which
+``torch.cuda.max_memory_allocated`` does not count. Replays allocate
+nothing, so the pool changes only at a capture, which takes its size.
+
 The graphs read the weights by address: ``load_state_dict`` copies into
 them and ``MBConvBlock.prepare_inference`` refolds into the fold's tensors,
 so replays see new weights; a fold replaced otherwise (``train()``,
@@ -119,6 +124,12 @@ class CudaGraphs:
     def replay(graph: torch.cuda.CUDAGraph) -> None:
         graph.replay()
 
+    @staticmethod
+    def pool_bytes(pool) -> int:
+        """The bytes of the card's memory segments that ``pool`` holds."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
 
 @dataclasses.dataclass(eq=False)
 class _Captured:
@@ -151,8 +162,9 @@ class DetectGraphs:
         self.backend = CudaGraphs() if backend is None else backend
         # a key's recorded draws after its first call, its graphs after its second
         self.slots: Dict[tuple, Any] = {}
-        # the memory pool every key's graphs allocate from (made at the first capture)
-        self.pool = None
+        # the memory pool every key's graphs allocate from (made at the first
+        # capture) and its bytes after the last capture
+        self.pool = self.pool_bytes = None
         self.stats = dict(captures=0, replays=0, eager=0)
 
     def key(self, driver, images: torch.Tensor,
@@ -176,7 +188,7 @@ class DetectGraphs:
                 a is not b for a, b in zip(slot.folds, _folds(driver))):
             # refolded into new tensors: the graphs read the old
             self.slots.clear()
-            self.pool = slot = None
+            self.pool = self.pool_bytes = slot = None
         if key is None or (slot is None and len(self.slots) >= MAX_GRAPHS):
             mode, out = "eager", self.eager(driver, images, scales, masks)
         elif slot is None:
@@ -185,12 +197,16 @@ class DetectGraphs:
             self.slots[key] = plan
         elif isinstance(slot, list):
             self.slots[key] = captured = self.capture(driver, slot, images, scales, masks)
+            self.pool_bytes = self.backend.pool_bytes(self.pool)
             mode, out = "capture", self.replay(captured)
         else:
             slot.load(images, scales, masks)
             mode, out = "replay", self.replay(slot)
         self.stats[_COUNTED_AS[mode]] += 1
-        profiling.annotate("serve", graph=mode)
+        if self.pool_bytes is None:
+            profiling.annotate("serve", graph=mode)
+        else:
+            profiling.annotate("serve", graph=mode, pool_bytes=self.pool_bytes)
         return out
 
     @staticmethod

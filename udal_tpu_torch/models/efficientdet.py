@@ -67,7 +67,7 @@ class EfficientDetNet(nn.Module):
         if not {"object_detection", "segmentation"} & set(cfg.heads):
             raise ValueError(f"no head to build in {cfg.heads}")
         min_level, max_level = cfg.min_level, cfg.max_level
-        num_levels = max_level - min_level + 1
+        num_levels = self.num_levels = max_level - min_level + 1
         self.feat_sizes = get_feat_sizes(cfg.image_size, max_level)
         feat_hw = tuple((self.feat_sizes[l]["height"], self.feat_sizes[l]["width"])
                         for l in range(min_level, max_level + 1))
@@ -135,7 +135,7 @@ class EfficientDetNet(nn.Module):
         (spans ``model.backbone`` and ``model.bifpn``)."""
         with profiling.span("model.backbone", batch=x.shape[0]):
             feats = self.backbone_features(x, masks, start_block)
-        with profiling.span("model.bifpn"):
+        with profiling.span("model.bifpn", levels=self.num_levels):
             return self.bifpn(feats)
 
     def predict_heads(self, feats: List[torch.Tensor],
@@ -156,7 +156,7 @@ class EfficientDetNet(nn.Module):
         ``num_samples`` the maps are a t-major T·B batch (made here from maps
         at B with ``repeat``) and the outputs have [T, B, ...] maps."""
         batch = feats[0].shape[0] * (num_samples if repeat else 1)
-        with profiling.span("model.heads", batch=batch):
+        with profiling.span("model.heads", batch=batch, levels=self.num_levels):
             if repeat:
                 feats = [f.repeat(num_samples, 1, 1, 1) for f in feats]
             outs = _nhwc(self.predict_heads(feats, masks))

@@ -11,7 +11,7 @@ them one CUDA graph a stage (``apps/detect_graph.py``).
 The forwards:
 
 - ``deterministic``: ``model.backbone``, ``model.bifpn``, ``model.heads``
-  at B.
+  at B (the last two with attribute ``levels``, the pyramid's levels).
 - ``head_only_mc``: the backbone and BiFPN at B, the heads at T·B on the
   maps repeated t-major.
 - ``mc_fast``: the shared prefix at B with the block-0 fold of all samples
@@ -68,6 +68,7 @@ def _network(model: EfficientDetNet, kind: str, batch: int, samples: int,
     """The stages of one network's forward of the NHWC ``images``: the
     backbone, the BiFPN and the heads, into entry ``outs<suffix>``."""
     feats, outs = f"feats{suffix}", f"outs{suffix}"
+    levels = model.num_levels
     if kind == "mc_fast":
         backbone = [
             Stage("model.backbone", dict(batch=batch), ("images", "masks"), "x",
@@ -84,11 +85,14 @@ def _network(model: EfficientDetNet, kind: str, batch: int, samples: int,
                               images.permute(0, 3, 1, 2).contiguous()))]
     if kind in ("head_only_mc", "mc_fast", "mc"):
         repeat = kind == "head_only_mc"
-        heads = Stage("model.heads", dict(batch=samples * batch), (feats, "masks"), outs,
+        heads = Stage("model.heads", dict(batch=samples * batch, levels=levels),
+                      (feats, "masks"), outs,
                       lambda f, masks: model.head_outputs(f, masks, samples, repeat))
     else:
-        heads = Stage("model.heads", dict(batch=batch), (feats,), outs, model.head_outputs)
-    return backbone + [Stage("model.bifpn", {}, (feats,), feats, model.bifpn), heads]
+        heads = Stage("model.heads", dict(batch=batch, levels=levels), (feats,), outs,
+                      model.head_outputs)
+    return backbone + [Stage("model.bifpn", dict(levels=levels), (feats,), feats, model.bifpn),
+                       heads]
 
 
 def stack_outputs(outs: Sequence[Outputs]) -> Outputs:

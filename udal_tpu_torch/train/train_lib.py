@@ -266,7 +266,7 @@ def compute_loss(config, model: EfficientDetNet, images: torch.Tensor,
 
 
 def train_step(config, schedule: Schedule, steps_per_epoch: int, state: TrainState,
-               images, labels: Mapping, seed: int = 0
+               images, labels: Mapping, seed: int = 0, masks=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One training step on the model's device; ``state`` is updated in
     place and returned with the step's values (device tensors, nothing
@@ -274,10 +274,13 @@ def train_step(config, schedule: Schedule, steps_per_epoch: int, state: TrainSta
     clipping) and ``learning_rate``, the rate this update used. Under a
     mesh, ``images`` and ``labels`` are this rank's rows of the global
     batch (``parallel.mesh.shard_batch``), as each data rank's reader
-    yields them."""
+    yields them. ``masks`` is the dropout source (MC dropout and
+    stochastic depth draw from it in the forward's order); by default a
+    fresh generator a step, ``step_generator(seed, state.step)``."""
     model, optimizer, mesh, tp = state.model, state.optimizer, state.mesh, state.tp
     device = next(model.parameters()).device
-    masks = ChannelDropout(step_generator(seed, state.step, device))
+    if masks is None:
+        masks = ChannelDropout(step_generator(seed, state.step, device))
     if mesh is not None:
         _refuse_ssl(config, mesh)
         masks = ShardedDropout(masks, mesh.data_index, mesh.shape["data"])

@@ -43,7 +43,8 @@ from torch.autograd import profiler as _autograd_profiler
 # each span the program opens, and the benchmark metric that reads it
 # (``bench_torch/metrics/``); ``device.idle_in_dispatch.serve`` reads the
 # markers of the ``model.*`` spans and of ``post``, ``model.graph_replay_share``
-# the ``graph`` attribute of the ``serve`` root (``annotate``)
+# the ``graph`` attribute of the ``serve`` root (``annotate``) and
+# ``serve.graph_pool_gib`` its ``pool_bytes``
 SPANS = {
     "serve": "serve.host_wait_ms",
     "serve.upload": "serve.upload_gbps",
