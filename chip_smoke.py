@@ -8,12 +8,12 @@ exit code:
 1. device: a CUDA card is required; prints its name and power limit
    (nvidia-smi), the torch and CUDA versions; turns TF32 off.
 2. build: compiles ``udal_tpu_torch/csrc/{soft_nms,fused_dw,
-   fused_expand_dw,packed_pointwise,packed_lane}.cu`` with nvcc (sm_90a),
-   one process each, all at once; prints each kernel instance's registers,
-   shared memory and spills (soft-NMS and the fused depthwise must not
-   spill), and the count of tensor-core instructions
-   (HMMA, HGMMA) in the libraries of packed_pointwise and fused_expand_dw
-   (cuobjdump -sass), which must not be 0.
+   fused_expand_dw,packed_pointwise,packed_lane,fused_sepconv}.cu`` with
+   nvcc (sm_90a), one process each, all at once; prints each kernel
+   instance's registers, shared memory and spills (soft-NMS and the fused
+   depthwise must not spill), and the count of tensor-core instructions
+   (HMMA, HGMMA) in the libraries of packed_pointwise, fused_expand_dw and
+   fused_sepconv (cuobjdump -sass), which must not be 0.
 3. kernels vs plain, on the card:
    - soft-NMS at the main path's shapes (B=8, N=5000, K=100), gaussian and
      hard, random and tied scores: equal valid_len, equal indices over it,
@@ -42,13 +42,28 @@ exit code:
    prefix on its fast path, which it must take, beside its general path,
    held to the same tolerances); then the bf16 expand
    kernel's time at each of d0's 15 expand blocks at T*B=80 and their sum.
+   - the fused separable conv (``SEPCONV_CASES``), one launch a level:
+     in bf16 a tower layer, a BiFPN node and the two predict convs at
+     d0's five levels of 1024x512 (the heads at T*B=320, the BiFPN at
+     B=32) and at d7x's six of 1536x768 (the heads at T*B=80, the BiFPN
+     at B=8), against the plain version on the same inputs within 2 bf16
+     ulps plus 1 of the largest value (both round pre(x) and the
+     depthwise to bf16; the f32 sums run in other orders). Each layer over all its
+     levels: the kernel's and the unfused bf16 chain's device time (ATen's
+     depthwise, cuDNN's 1x1, BatchNorm, the activation, the mask; 10
+     calls a CUDA graph), the plain version's (CUDA events), and the bound
+     of the bytes in and out once and the products.
 4. the slice at full width: MC-dropout EfficientDet-d0 (1024x512, 8
    classes, loss attenuation, T=10 at rate 0.05, batch 8, bf16, random
    weights from a seed) serves uint8 batches; checks the packed shapes,
    finiteness, detections, and that every serve call launched the fused
    depthwise kernel once (the MC prefix, on its fast path), the fused
    expand + depthwise
-   kernel 15 times (blocks 1-15) and the NMS kernel once. With
+   kernel 15 times (blocks 1-15), the NMS kernel once and the fused
+   separable conv 64 times (``sepconv_per_forward``: 24 BiFPN nodes, and
+   in each head 3 tower layers and the predict conv at 5 levels; as many
+   a member in every bf16 serve phases 7, 8 and 12 count; phase 5's f32
+   serves run the chain and launch none). With
    ``--profile``, a torch.profiler operator split of two serves follows
    (and of each phase-7 path), with the card's busy time a call against
    the call's unprofiled host time.
@@ -215,13 +230,16 @@ launches on the main path (phase 4's traced calls, or phase 6's timed cases for 
 probes), largest error, time (soft_nms and fused_dw: device time of 10
 calls captured in a CUDA graph; fused_expand_dw: CUDA events around eager
 calls; the packed rows: the tool's graph medians, rows 6-7 and their
-plain version the 5-round medians of phase 6, streamed from HBM), plain
-time (CUDA events
+plain version the 5-round medians of phase 6, streamed from HBM;
+fused_sepconv: d0's tower layer over its five levels at T*B=320, 10
+calls in a CUDA graph, its launches those of phase 4's traced serves),
+plain time (CUDA events
 around eager calls), its bound (the largest of the
 bytes it must move at 3.35 TB/s, its bf16 operations on tensor cores at
 989 TFLOP/s and its f32 operations at 67 TFLOP/s, the H100 SXM data
 sheet's rates), and the time of one PyTorch call that computes the same
-function where there is one. The last line is ``{"ok": true, "device":
+function where there is one (fused_sepconv: the unfused chain's device
+time). The last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -253,6 +271,7 @@ from udal_tpu_torch.apps.validate import Validator, read_validate_results
 from udal_tpu_torch.config import get_detection_config, parse_image_size
 from udal_tpu_torch.convert import flax_to_torch, torch_to_flax
 from udal_tpu_torch.models.efficientdet import EfficientDetModel, EfficientDetNet, init_flax_style
+from udal_tpu_torch.models.bifpn import SeparableConv
 from udal_tpu_torch.models.ensemble import init_ensemble, stack_variables
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
                                                 activation_fn, backbone_spec,
@@ -263,7 +282,8 @@ from udal_tpu_torch.data.image_codec import decode_image, encode_png
 from udal_tpu_torch.data.label_maps import get_label_map
 from udal_tpu_torch.data import tfrecord
 from udal_tpu_torch.data.synthetic import synthetic_batch
-from udal_tpu_torch.ops import _build, cuda_nms, fused_dw, fused_mbconv, nms, packed
+from udal_tpu_torch.ops import (_build, cuda_nms, fused_dw, fused_mbconv, fused_sepconv, nms,
+                                packed)
 from udal_tpu_torch.ops.image_ops import gaussian_blur_uint8, resize_bilinear_uint8
 from udal_tpu_torch.tools import perf_packed
 from udal_tpu_torch.train import loop, train_lib
@@ -304,7 +324,8 @@ CALIB_BATCHES, INFER_BATCHES, VAL_BATCHES = 4, 2, 2
 ENSEMBLE_MEMBERS = 5           # BASELINE config #3
 BATCH, N_CAND, K = 8, 5000, 100
 SERVE_CALLS = 4
-SOURCES = ("soft_nms", "fused_dw", "fused_expand_dw", "packed_pointwise", "packed_lane")
+SOURCES = ("soft_nms", "fused_dw", "fused_expand_dw", "packed_pointwise", "packed_lane",
+           "fused_sepconv")
 # the packed probes: (kernel, source, TPU kernel, the tool's kernel and plain cases)
 PACKED_ROWS = (
     ("packed_pointwise", "packed_pointwise", "tools/perf_packed.py:80",
@@ -321,6 +342,22 @@ PREFIX = ("MC prefix (block 0)", BATCH, 32, 32, 256, 512, 3, 1)
 BLOCKS = (("block 1", 80, 16, 96, 256, 512, 3, 2),
           ("block 3", 80, 24, 144, 128, 256, 5, 2),
           ("block 12", 80, 192, 1152, 16, 32, 5, 1))
+# phase 3's fused separable convs, bf16: (what, pre, post, BatchNorm, mask, N,
+# Cin, Cout, levels); d0's pyramid at 1024x512 (the heads at T·B = 320 as in
+# kitti_head.serve_native_b32's, the BiFPN at B = 32; 7 classes, 9 anchors,
+# boxes with σ), d7x's at 1536x768 (the heads at T·B = 80, the BiFPN at B = 8;
+# 10 classes)
+D0_LEVELS = ((64, 128), (32, 64), (16, 32), (8, 16), (4, 8))
+D7X_LEVELS = ((96, 192), (48, 96), (24, 48), (12, 24), (6, 12), (3, 6))
+SEPCONV_CASES = (
+    ("d0 tower layer", "identity", "swish", True, True, 320, 64, 64, D0_LEVELS),
+    ("d0 BiFPN node", "swish", "identity", True, False, 32, 64, 64, D0_LEVELS),
+    ("d0 class predict", "identity", "identity", False, False, 320, 64, 63, D0_LEVELS),
+    ("d0 box predict", "identity", "identity", False, False, 320, 64, 72, D0_LEVELS),
+    ("d7x tower layer", "identity", "swish", True, True, 80, 384, 384, D7X_LEVELS),
+    ("d7x BiFPN node", "swish", "identity", True, False, 8, 384, 384, D7X_LEVELS),
+    ("d7x class predict", "identity", "identity", False, False, 80, 384, 90, D7X_LEVELS),
+    ("d7x box predict", "identity", "identity", False, False, 80, 384, 72, D7X_LEVELS))
 # f32 checks at N=8 over every (k, s): shapes of d0's blocks at 1024x512
 F32_BLOCKS = {(3, 2): (16, 96, 256, 512), (3, 1): (24, 144, 128, 256),
               (5, 2): (24, 144, 128, 256), (5, 1): (192, 1152, 16, 32)}
@@ -410,12 +447,13 @@ def ptxas_summary(name):
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             base = re.search(r"(soft_nms_kernel|fused_dw_kernel|fused_dw_rows_kernel|"
-                             r"fused_expand_dw_kernel|"
+                             r"fused_expand_dw_kernel|fused_sepconv_tc_kernel|"
                              r"expand_dw_tc_kernel|sum_partials|packed_pointwise_gmma_kernel|"
                              r"packed_pointwise_kernel|"
                              r"wshift_kernel|add_one_kernel|dw_w3_kernel)(I.*?EE)?", m.group(1))
             args = base.group(2) or ""
-            kind = ("bf16" if "bfloat16" in args or base.group(1) == "expand_dw_tc_kernel"
+            kind = ("bf16" if "bfloat16" in args or base.group(1) in (
+                "expand_dw_tc_kernel", "fused_sepconv_tc_kernel")
                     else ("f32" if args.startswith("If")
                           or base.group(1) == "fused_expand_dw_kernel" else ""))
             entry = base.group(1) + "<" + ",".join(
@@ -697,6 +735,88 @@ def eager_modules(o, expand, cin, ce, k, s, dev):
     return {n: m.to(dev, torch.bfloat16).eval() for n, m in mods.items()}
 
 
+def check_fused_sepconv(dev, smi):
+    """Phase 3, the fused separable conv at ``SEPCONV_CASES``. Returns the
+    largest error and, for the first case (d0's tower layer), the kernel's,
+    the plain version's and the unfused chain's ms and the bound."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst, first = 0.0, None
+    dtype = torch.bfloat16
+    for what, pre, post, use_bn, masked, n, cin, cout, levels in SEPCONV_CASES:
+        taps = (torch.randn((cin, 1, 3, 3), device=dev, generator=g) / 3).to(dtype)
+        wt = (torch.randn((cout, cin, 1, 1), device=dev, generator=g) / cin ** 0.5).to(dtype)
+        scale = (torch.rand(cout, device=dev, generator=g) + 0.5 if use_bn
+                 else torch.ones(cout, device=dev))
+        bias = 0.1 * torch.randn(cout, device=dev, generator=g)
+        ops = []
+        for h, w in levels:
+            x = torch.randn((n, cin, h, w), device=dev, generator=g).to(dtype)
+            mask = ((torch.rand((n, cout), device=dev, generator=g) < 0.95) / 0.95
+                    if masked else None)
+            ops.append((x, taps, wt, scale, bias, mask, pre, post))
+        err = 0.0
+        for args in ops:
+            before = fused_sepconv.launches
+            got = fused_sepconv.fused_sepconv(*args)
+            want = fused_sepconv.fused_sepconv_plain(*args)
+            torch.cuda.synchronize()
+            if fused_sepconv.launches != before + 1:
+                raise AssertionError(f"fused_sepconv {what}: {fused_sepconv.launches - before} "
+                                     f"launches a level")
+            excess, _ = bf16_excess(got, want, 2, 1)
+            if excess > 0:
+                raise AssertionError(f"fused_sepconv {what} at {tuple(got.shape)}: beyond 2 + 1 "
+                                     f"top bf16 ulps by {excess}")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            del got, want
+        worst = max(worst, err)
+        # the unfused chain of the port's modules on the same operands
+        with torch.no_grad():
+            conv = SeparableConv(cin, cout, use_bias=False).to(dev, dtype).eval()
+            conv.depthwise.weight.copy_(taps)
+            conv.pointwise.weight.copy_(wt)
+            bn = BatchNorm(cout).to(dev).eval()
+            bn.weight.copy_(scale)
+            bn.bias.copy_(bias)
+            bn.running_var.fill_(1.0 - bn.eps)
+            bn = bn.to(dtype)
+        act_pre, act_post = activation_fn(pre), activation_fn(post)
+
+        def chain():
+            with torch.no_grad():
+                for x, *_, mask, _, _ in ops:
+                    y = act_post(bn(conv(act_pre(x))))
+                    if mask is not None:
+                        y = y * mask.to(dtype)[:, :, None, None]
+
+        def kernel():
+            for args in ops:
+                fused_sepconv.fused_sepconv(*args)
+
+        def plain():
+            for args in ops:
+                fused_sepconv.fused_sepconv_plain(*args)
+
+        t_kernel, t_chain = graph_median_ms(kernel), graph_median_ms(chain)
+        t_plain = cuda_median_ms(plain, runs=5, warmup=1)
+        pixels = sum(n * h * w for h, w in levels)
+        nbytes = pixels * (cin + cout) * 2 + len(levels) * (
+            (cin * 9 + cout * cin) * 2 + 8 * cout + (4 * n * cout if masked else 0))
+        layer_bound = bound(nbytes, 2.0 * pixels * cin * cout, pixels * (18.0 * cin + 8.0 * cout))
+        phase(3, f"fused_sepconv bf16 {what}: N={n} {cin}->{cout}, "
+                 f"levels {'/'.join(f'{h}x{w}' for h, w in levels)}, pre {pre}, post {post}, "
+                 f"mask {'on' if masked else 'off'}: max err {err:.3g}; a layer over its "
+                 f"levels: kernel {t_kernel:.4f} ms, unfused chain {t_chain:.4f} ms (device "
+                 f"time, 10 calls a CUDA graph), plain (f32 inside) {t_plain:.4f} ms; bound "
+                 f"{layer_bound[0]:.4f} ms ({layer_bound[1]}), the kernel at "
+                 f"{layer_bound[0] / t_kernel:.0%} of it; {smi}")
+        if first is None:
+            first = (t_kernel, t_plain, t_chain, layer_bound)
+        del ops, conv, bn
+        torch.cuda.empty_cache()
+    return worst, first
+
+
 # the port's kernels launched on the card between ``reset_counts`` and
 # ``counts``: a trace of the card, since a replayed CUDA graph launches the
 # serve's kernels without their wrappers and their counters
@@ -707,7 +827,7 @@ def reset_counts(trace=True):
     """Set the wrappers' launch counters to 0 and, with ``trace``, start
     counting the port's kernels in a trace of the card (which times traced
     work from here to ``counts``)."""
-    cuda_nms.launches = fused_dw.launches = fused_mbconv.launches = 0
+    cuda_nms.launches = fused_dw.launches = fused_mbconv.launches = fused_sepconv.launches = 0
     fused_dw.path_launches.update(dict.fromkeys(fused_dw.path_launches, 0))
     packed.launches.update(dict.fromkeys(packed.launches, 0))
     LAUNCHES.stop()
@@ -724,6 +844,19 @@ def counts():
 def fast_launches():
     """The fused depthwise's fast-path launches of the same trace."""
     return LAUNCHES.stop().fast
+
+
+def sepconv_launches():
+    """The fused separable conv's launches of the same trace."""
+    return LAUNCHES.stop().sepconv
+
+
+def sepconv_per_forward(cfg):
+    """The fused separable conv's launches a forward of a member: each
+    BiFPN node's conv, and in each of the two heads a tower layer a repeat
+    and the predict conv, level by level (64 at d0, 152 at d7x)."""
+    levels = cfg.max_level - cfg.min_level + 1
+    return cfg.fpn_cell_repeats * 2 * (levels - 1) + 2 * levels * (cfg.box_class_repeats + 1)
 
 
 def profile_calls(label, fn, wall_ms, calls=2):
@@ -864,7 +997,7 @@ def phase5(dev):
         model = EfficientDetModel(small_config(deterministic))
         model.load_state_dict(state)
         model = model.to(device).eval()
-        model.backbone.prepare_inference()
+        model.prepare_inference()
         with torch.inference_mode():
             return model(torch.as_tensor(raw_small, device=device), post_mode="per_class")
 
@@ -888,14 +1021,17 @@ def phase5(dev):
             reset_counts()
             outs.append(run(device)[:4])
             expect = (0, 0, 0) if device == "cpu" else want
-            if counts() != expect or fast_launches() != expect[0]:
+            # f32: the separable convs run the chain on the card too
+            if counts() != expect or fast_launches() != expect[0] or sepconv_launches() != 0:
                 raise AssertionError(f"{path} on {device}: (fused_dw, fused_expand_dw, "
                                      f"soft_nms) launches {counts()}, want {expect}; fused_dw "
-                                     f"fast path {fast_launches()}")
+                                     f"fast path {fast_launches()}; fused_sepconv "
+                                     f"{sepconv_launches()}, want 0 in f32")
         worst = matched_sets(outs[1], outs[0], f"{path}: cuda vs cpu")
         phase(5, f"128x128 f32 {path}: card (kernels, launches {'/'.join(map(str, want))}, "
-                 f"fused_dw on its fast path) and CPU (plain) detections agree as matched "
-                 f"sets, valid_len {outs[0][3].tolist()}, max score diff {worst:.2e}")
+                 f"fused_dw on its fast path, no fused_sepconv in f32) and CPU (plain) "
+                 f"detections agree as matched sets, valid_len {outs[0][3].tolist()}, max "
+                 f"score diff {worst:.2e}")
     train_parity(dev, small_config({**deterministic, "batch_size": 2}), state, images)
     torch.cuda.empty_cache()
 
@@ -916,14 +1052,16 @@ def train_parity(dev, config, state, images):
         st, schedule = train_lib.create_train_state(config, 10, device=device, state_dict=state)
         reset_counts()
         _, vals = train_lib.train_step(config, schedule, 10, st, *batch)
-        if counts() != (0, 0, 0):
-            raise AssertionError(f"a train step on {device} launched kernels: {counts()}")
+        if counts() != (0, 0, 0) or sepconv_launches() != 0:
+            raise AssertionError(f"a train step on {device} launched kernels: {counts()}, "
+                                 f"fused_sepconv {sepconv_launches()}")
         grads = {n: p.grad.detach().cpu() for n, p in st.model.named_parameters()}
         driver = ServingDriver(config, st.model.state_dict(), dtype=torch.float32,
                                device=device)
         reset_counts()
         serve = driver.serve_preprocessed(images)[:4]
-        runs[str(device)] = ({k: float(v) for k, v in vals.items()}, grads, serve, counts())
+        runs[str(device)] = ({k: float(v) for k, v in vals.items()}, grads, serve,
+                             counts() + (sepconv_launches(),))
     (cpu_vals, cpu_grads, cpu_serve, _), (vals, grads, serve, launches) = runs.values()
     for k, v in cpu_vals.items():
         if abs(vals[k] - v) > 1e-4 * abs(v) + 1e-7:
@@ -936,8 +1074,9 @@ def train_parity(dev, config, state, images):
     if err > 1e-2 * norm or worst > 3e-2:
         raise AssertionError(f"train step gradients: relative L2 {err / norm:.2e}, worst leaf "
                              f"{worst:.2e}")
-    if launches != (1, 15, 1):
-        raise AssertionError(f"serve of the stepped model launched {launches}, want 1/15/1")
+    if launches != (1, 15, 1, 0):
+        raise AssertionError(f"serve of the stepped model launched {launches}, want 1/15/1 "
+                             f"and no fused separable conv (f32)")
     diff = matched_sets(serve, cpu_serve, "stepped model: cuda vs cpu")
     phase(5, f"128x128 f32 train step (dropout off, TF32 off), card vs CPU: loss "
              f"{vals['loss']:.6f} vs {cpu_vals['loss']:.6f}, gradient norm "
@@ -974,14 +1113,17 @@ def traced_calls(fn):
     return out, counts()
 
 
-def assert_launches(what, launches, per_call):
+def assert_launches(what, launches, per_call, sepconv):
     """(fused_dw, fused_expand_dw, soft_nms) launches of SERVE_CALLS calls,
-    every fused_dw launch on its fast path."""
+    every fused_dw launch on its fast path, and ``sepconv`` fused
+    separable convs a call."""
     want = tuple(SERVE_CALLS * n for n in per_call)
-    if launches != want or fast_launches() != want[0]:
+    if launches != want or fast_launches() != want[0] or \
+            sepconv_launches() != SERVE_CALLS * sepconv:
         raise AssertionError(f"{what}: (fused_dw, fused_expand_dw, soft_nms) launches "
                              f"{launches} in {SERVE_CALLS} calls, want {per_call} a call; "
-                             f"fused_dw fast path {fast_launches()}")
+                             f"fused_dw fast path {fast_launches()}; fused_sepconv "
+                             f"{sepconv_launches()}, want {sepconv} a call")
 
 
 def assert_detections(what, tensors, shapes):
@@ -1014,7 +1156,7 @@ def phase7(dev, smi, profiled=False):
     det, ms, first, launches, peak = timed_calls(
         lambda: server.serve_detections_preprocessed_uint8(frames, **warp))
     what = f"KITTI ({path}), head-only MC T={cfg.mc_dropoutsamp}"
-    assert_launches(what, launches, (1, 15, 1))
+    assert_launches(what, launches, (1, 15, 1), sepconv_per_forward(cfg))
     fast = fast_launches()
     c = cfg.num_classes
     assert_detections(what, [det.boxes, det.sigma_al, det.sigma_mc, det.sigma_cls, det.logits],
@@ -1027,7 +1169,8 @@ def phase7(dev, smi, profiled=False):
     bench = server.benchmark(frames, warmup=1, iters=3)
     phase(7, f"{what}: serve_detections_preprocessed_uint8 from native {h}x{w} uint8 frames "
              f"(warp to {sh}x{sw} on the {net_h}x{net_w} canvas), B={BATCH} bf16: launches in "
-             f"{SERVE_CALLS} calls {launches} (fused_dw fast path {fast}); boxes, sigma_al, "
+             f"{SERVE_CALLS} calls {launches} (fused_dw fast path {fast}), fused_sepconv "
+             f"{sepconv_launches()}; boxes, sigma_al, "
              f"sigma_mc [{BATCH}, {K}, 4], "
              f"sigma_cls, logits [{BATCH}, {K}, {c}], valid_len {det.valid_len.tolist()}; "
              f"{ms:.1f} ms/batch ({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}, "
@@ -1048,7 +1191,8 @@ def phase7(dev, smi, profiled=False):
     raw = np.random.RandomState(6).randint(0, 256, (BATCH, 512, 1024, 3)).astype(np.uint8)
     out, ms, first, launches, peak = timed_calls(lambda: server.serve(raw))
     what = f"BDD ({path}), {ENSEMBLE_MEMBERS}-member ensemble"
-    assert_launches(what, launches, (ENSEMBLE_MEMBERS, 15 * ENSEMBLE_MEMBERS, 1))
+    assert_launches(what, launches, (ENSEMBLE_MEMBERS, 15 * ENSEMBLE_MEMBERS, 1),
+                    ENSEMBLE_MEMBERS * sepconv_per_forward(cfg))
     c = cfg.num_classes
     assert_detections(what, out, [(BATCH, K, 12), (BATCH, K), (BATCH, K, 1 + c), (BATCH,),
                                   (BATCH, K, c)])
@@ -1056,7 +1200,7 @@ def phase7(dev, smi, profiled=False):
         raise AssertionError(f"{what}: no detections")
     phase(7, f"{what}: serve of [{BATCH}, 512, 1024, 3] uint8, bf16: launches in "
              f"{SERVE_CALLS} calls {launches} (fused_dw fast path "
-             f"{fast_launches()}); packed "
+             f"{fast_launches()}), fused_sepconv {sepconv_launches()}; packed "
              f"{[tuple(t.shape) for t in out]}, valid_len {out[3].tolist()}; {ms:.1f} ms/batch "
              f"({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}, first "
              f"{first:.0f} ms), peak {peak:.2f} GiB; {smi}")
@@ -1070,7 +1214,7 @@ def phase7(dev, smi, profiled=False):
     model = EfficientDetModel(cfg)
     init_flax_style(model, torch.Generator().manual_seed(0))
     model = model.to(dev, torch.bfloat16).eval()
-    model.backbone.prepare_inference()
+    model.prepare_inference()
 
     def per_class():
         with torch.inference_mode():
@@ -1078,14 +1222,15 @@ def phase7(dev, smi, profiled=False):
 
     out, ms, first, launches, peak = timed_calls(per_class)
     what = "EfficientDetModel(post_mode='per_class') at the KITTI configuration"
-    assert_launches(what, launches, (1, 15, 1))
+    assert_launches(what, launches, (1, 15, 1), sepconv_per_forward(cfg))
     c = cfg.num_classes
     assert_detections(what, out, [(BATCH, K, 8), (BATCH, K), (BATCH, K), (BATCH,), (BATCH, K, c)])
     if int(out[3].max()) <= 0:
         raise AssertionError(f"{what}: no detections")
     phase(7, f"{what}: native {h}x{w} uint8 frames, preprocess on the card, one deterministic "
              f"pass, per-class soft-NMS, B={BATCH} bf16: launches in {SERVE_CALLS} calls "
-             f"{launches}; valid_len {out[3].tolist()}; {ms:.1f} ms/batch "
+             f"{launches}, fused_sepconv {sepconv_launches()}; valid_len {out[3].tolist()}; "
+             f"{ms:.1f} ms/batch "
              f"({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}), peak "
              f"{peak:.2f} GiB; {smi}")
     if profiled:
@@ -1188,7 +1333,7 @@ def phase8(dev, smi, profiled=False):
     raw = np.random.RandomState(11).randint(0, 256, (cfg.batch_size, h, w, 3)).astype(np.uint8)
     out, serve_ms, _, launches, _ = timed_calls(lambda: server.serve(raw))
     what = "serve of the trained weights"
-    assert_launches(what, launches, (1, 15, 1))
+    assert_launches(what, launches, (1, 15, 1), sepconv_per_forward(cfg))
     c = cfg.num_classes
     assert_detections(what, out, [(cfg.batch_size, K, 12), (cfg.batch_size, K),
                                   (cfg.batch_size, K, 1 + c), (cfg.batch_size,),
@@ -2152,10 +2297,13 @@ def phase12(dev, smi, native=KITTI_NATIVE, extra=None):
     events = json.loads(traces[0].read_text())["traceEvents"]
     launched = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     # the launches counted in the trace written, by profiling.KERNELS' names
-    launches = tuple(sum(1 for n in launched if any(re.search(rf"\b{k}\b", n) for k in names))
-                     for names in profiling.KERNELS.values())
-    if launches != per_serve(2):
-        raise AssertionError(f"profiling.trace: launches {launches} in 2 serves")
+    by_wrapper = {w: sum(1 for n in launched if any(re.search(rf"\b{k}\b", n) for k in names))
+                  for w, names in profiling.KERNELS.items()}
+    launches = tuple(by_wrapper[w] for w in ("fused_dw", "fused_expand_dw", "soft_nms"))
+    sepconv = 2 * sepconv_per_forward(cfg) if torch.device(dev).type == "cuda" else 0
+    if launches != per_serve(2) or by_wrapper["fused_sepconv"] != sepconv:
+        raise AssertionError(f"profiling.trace: launches {launches}, fused_sepconv "
+                             f"{by_wrapper['fused_sepconv']} in 2 serves (want {sepconv})")
     kernels = set(launched)
     found = {k: sum(k in name for name in kernels) for k in ("soft_nms", "fused_dw", "expand_dw")}
     if torch.device(dev).type == "cuda" and not all(found.values()):
@@ -2688,7 +2836,7 @@ def main():
         spilled = ptxas_summary(name)
         if spilled and name in ("soft_nms", "fused_dw"):
             raise AssertionError(f"csrc/{name}.cu: {spilled} spill registers")
-    for name in ("packed_pointwise", "fused_expand_dw"):
+    for name in ("packed_pointwise", "fused_expand_dw", "fused_sepconv"):
         mma = tensor_core_instructions(name)
         phase(2, f"{name}: {mma} tensor-core instructions (HMMA/HGMMA) in its SASS")
         if mma == 0:
@@ -2701,6 +2849,7 @@ def main():
     f32_err = check_fused_f32(dev, rng)
     bf16_err, fused_times = check_fused_bf16(dev, rng, smi)
     torch.cuda.empty_cache()
+    sepconv_err, sepconv_times = check_fused_sepconv(dev, smi)
     time_expand_blocks(dev, rng, smi)
     torch.cuda.empty_cache()
 
@@ -2715,6 +2864,10 @@ def main():
     if fast_launches() != SERVE_CALLS:
         raise AssertionError(f"fused_dw fast path {fast_launches()} in {SERVE_CALLS} serve "
                              f"calls; the MC prefix must take the fast path")
+    serve_sepconv = sepconv_launches()
+    if serve_sepconv != SERVE_CALLS * sepconv_per_forward(server.config):
+        raise AssertionError(f"fused_sepconv {serve_sepconv} in {SERVE_CALLS} serve calls; want "
+                             f"{sepconv_per_forward(server.config)} a call")
     shapes = [tuple(t.shape) for t in out]
     if shapes != [(BATCH, K, 12), (BATCH, K), (BATCH, K, 9), (BATCH,)]:
         raise AssertionError(f"packed shapes {shapes}")
@@ -2726,7 +2879,8 @@ def main():
     phase(4, f"d0 1024x512 T=10 B={BATCH} bf16: packed {shapes}, valid_len "
              f"{out[3].tolist()}; launches on the card in {SERVE_CALLS} traced calls after "
              f"the timed ones: fused_dw {launches[0]} (fast path {fast_launches()}), "
-             f"fused_expand_dw {launches[1]}, soft_nms {launches[2]}; model step calls "
+             f"fused_expand_dw {launches[1]}, soft_nms {launches[2]}, fused_sepconv "
+             f"{serve_sepconv}; model step calls "
              f"{server.graph_stats} (CUDA graphs); {ms:.1f} ms/batch "
              f"({BATCH / ms * 1e3:.1f} img/s, median of calls 2-{SERVE_CALLS}, first "
              f"{first:.0f} ms), peak {peak:.2f} "
@@ -2857,6 +3011,11 @@ def main():
                      "replaces": replaces, "launches": packed_launches[name],
                      "max_abs_err": packed_err[name], "ms": bench[case],
                      "plain_ms": bench[plain_case]})
+    k_ms, p_ms, library["fused_sepconv"], bounds["fused_sepconv"] = sepconv_times
+    rows.append({"name": "fused_sepconv", "route": "cuda",
+                 "source": "udal_tpu_torch/csrc/fused_sepconv.cu", "replaces": None,
+                 "launches": serve_sepconv, "max_abs_err": sepconv_err, "ms": k_ms,
+                 "plain_ms": p_ms})
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]
         row["library_ms"] = library.get(row["name"])

@@ -1097,7 +1097,9 @@ def test_replayed_serves_equal_eager_ones_bit_for_bit(cuda, forward):
     """Four calls: eager, capture, two replays; each packed tuple equals the
     eager forward's under the same masks, bit for bit, the mask sources
     see the same draws, and each call launches the port's kernels as
-    many times as the forward has them, counted in a trace of the card."""
+    many times as the forward has them, counted in a trace of the card
+    (the fused separable conv 64 times a member: 24 BiFPN nodes, and 3
+    tower layers and a predict conv a level in each head)."""
     graphs, eager = forward_driver(cuda, forward), forward_driver(cuda, forward)
     graphs.masks, eager.masks = KeptDraws(graphs.masks), KeptDraws(eager.masks)
     for i in range(4):
@@ -1105,6 +1107,7 @@ def test_replayed_serves_equal_eager_ones_bit_for_bit(cuda, forward):
             got = graphs.serve_preprocessed(*graph_inputs(i))
         assert launches.counts == FORWARDS[forward][2], i
         assert launches.fast == launches.counts[0], i
+        assert launches.sepconv == 64 * launches.counts[0], i
         want = eager_packed(eager, *graph_inputs(i))
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w), i
@@ -1141,7 +1144,7 @@ def test_weights_loaded_after_the_capture_reach_the_replay(cuda):
         driver.serve_preprocessed(*graph_inputs(i))
     other = bench_driver(cuda, "kitti_mc_d0", seed=2)
     driver.model.load_state_dict(other.model.state_dict())
-    driver.model.backbone.prepare_inference()
+    driver.model.prepare_inference()
     for d in (driver, other):
         d.masks = ChannelDropout(torch.Generator(device=cuda).manual_seed(9))
     got = driver.serve_preprocessed(*graph_inputs(7))
@@ -1271,8 +1274,9 @@ def test_fused_expand_dw_tc_matches_plain_at_b7_blocks(cuda, cin, ce, k, s, h, w
 def test_d7x_serve_launches_4_51_1_from_a_trace(cuda):
     """EfficientDet-d7x at 1536x768 (the benchmark's bdd_head_d7x overrides,
     head-only MC, T = 10), batch 2: a replayed serve launches B2 four
-    times (its fast path), B3 51 times and soft-NMS once, read from a
-    trace of the card."""
+    times (its fast path), B3 51 times, soft-NMS once and the fused
+    separable conv 152 times (80 BiFPN nodes, and 5 tower layers and a
+    predict conv a level in each head), read from a trace of the card."""
     import json
 
     from udal_tpu_torch.apps.serving import ServingDriver
@@ -1289,3 +1293,4 @@ def test_d7x_serve_launches_4_51_1_from_a_trace(cuda):
         driver.serve_preprocessed(images, scales)
     assert driver.graph_stats == dict(captures=1, replays=2, eager=1)
     assert launches.counts == (4, 51, 1) and launches.fast == 4
+    assert launches.sepconv == 152

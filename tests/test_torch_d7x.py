@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 from bench_torch import harness, weights  # noqa: E402
 from bench_torch import reference_sum as RS  # noqa: E402
 from udal_tpu_torch.config import get_detection_config  # noqa: E402
-from udal_tpu_torch.models import efficientdet, efficientnet  # noqa: E402
+from udal_tpu_torch.models import bifpn, efficientdet, efficientnet  # noqa: E402
 from udal_tpu_torch.models.efficientdet import EfficientDetNet, mc_forward  # noqa: E402
 from udal_tpu_torch.utils import profiling  # noqa: E402
 
@@ -148,6 +148,71 @@ def test_the_port_computes_the_sum_fusion_reference(small_b7, mc):
         want = want.movedim(-3, -1)                     # [T, B, H, W, C]
         got = got if mc else got[None]
         torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_d7x_heads_with_fused_separable_convs_on_the_card(small_b7, monkeypatch):
+    """d7x's BiFPN and heads at their widths (384 wide, 8 sum-fusion cells
+    over P3-P8, 5 tower repeats, 10 classes) on the small B7 at 512x256,
+    batch 2, T = 3 head-only MC, bf16 on the card: the head outputs with
+    the fused separable convs (80 nodes, then 12 calls a level) and with
+    the unfused chain, under the same masks, each against the f32 chain.
+    The fused kernel rounds a conv's output once where the chain rounds
+    after each op, so its outputs are no further from f32 than the
+    chain's (the relative norm of the error over every map)."""
+    from udal_tpu_torch.ops import fused_sepconv
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda:0")
+    _, program = _config()
+    d7x = get_detection_config("efficientdet-d7x")
+    program.override(dict(fpn_num_filters=d7x.fpn_num_filters,
+                          fpn_cell_repeats=d7x.fpn_cell_repeats, num_classes=10),
+                     allow_new_keys=True)
+    model = EfficientDetNet(program)
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():       # unit-size maps through every conv and BatchNorm
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) / fan_in ** 0.5)
+            elif isinstance(m, efficientnet.BatchNorm):
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+    model = model.to(cuda)
+    g = torch.Generator().manual_seed(4)
+    images = torch.randn((2, 256, 512, 3), generator=g).to(cuda)
+    t = program.mc_dropoutsamp
+    sites = [(t * 2, program.fpn_num_filters)] * (2 * 6 * program.box_class_repeats)
+    bits = [(torch.rand(s, generator=g) < 0.95).to(cuda) for s in sites]
+
+    def outputs(dtype):
+        with torch.inference_mode():
+            cls, box = mc_forward(model, images.to(dtype), t, _Replay(bits))[:2]
+        return [o.float() for o in list(cls) + list(box)]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with monkeypatch.context() as m:        # the card taken for the CPU: the chain
+            m.setattr(bifpn, "_kernel_takes", lambda x: False)
+            ref = outputs(torch.float32)
+            model.to(torch.bfloat16)
+            unfused = outputs(torch.bfloat16)
+        model.prepare_inference()
+        before = fused_sepconv.launches
+        fused = outputs(torch.bfloat16)
+        assert fused_sepconv.launches - before == 8 * 10 + 6 * 2 * 6
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    def err(got):
+        return (sum(((a - b) ** 2).sum() for a, b in zip(got, ref))
+                / sum((b ** 2).sum() for b in ref)).sqrt().item()
+
+    print("relative error against f32: fused", err(fused), "unfused", err(unfused))
+    assert err(fused) <= err(unfused)
 
 
 def test_the_cell_rehearses_correct_and_its_control_fails(small_b7):

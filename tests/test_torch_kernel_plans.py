@@ -8,7 +8,10 @@ CPU, and numpy/torch emulations of what the kernels do with them.
 - the fused depthwise's fast path (``csrc/fused_dw.cu``): the 16-byte
   staged window and band against every read of the stencil, and the staged
   window plus the column-segment stencil against
-  ``fused_depthwise_plain`` with TF SAME borders.
+  ``fused_depthwise_plain`` with TF SAME borders;
+- the fused separable conv (``csrc/fused_sepconv.cu``): the band planner's
+  plans, and the staged bands of global rows with their depthwise pairs,
+  product and scatter back to the images against ``fused_sepconv_plain``.
 
 The kernels themselves are held against the plain versions on a card in
 ``tests/test_torch_cuda.py``.
@@ -22,7 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tests.test_torch_cuda import random_batch, score_threshold  # noqa: E402
-from udal_tpu_torch.ops import cuda_nms, fused_dw, nms  # noqa: E402
+from udal_tpu_torch.ops import cuda_nms, fused_dw, fused_sepconv, nms  # noqa: E402
 
 # -- soft-NMS ------------------------------------------------------------------
 
@@ -302,3 +305,94 @@ def test_row_emulation_equals_the_plain_version(k, s, h, w, itemsize):
         *(torch.from_numpy(a) for a in (x, taps, scale, bias, mask)), s, "swish", True)
     np.testing.assert_allclose(got_y, want_y.numpy(), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got_mean, want_mean.numpy(), atol=1e-6, rtol=1e-5)
+
+
+# -- the fused separable conv ---------------------------------------------------
+
+# (n, cin, h, w): d0's levels at 1024x512 at the BiFPN's and the heads'
+# batches, d7x's at 1536x768, and edges (odd, one-pixel and wide rows)
+SEP_SHAPES = ([(n, 64, h, w) for n in (8, 80, 320)
+               for h, w in ((64, 128), (32, 64), (16, 32), (8, 16), (4, 8))]
+              + [(n, 384, h, w) for n in (8, 80)
+                 for h, w in ((96, 192), (48, 96), (24, 48), (12, 24), (6, 12), (3, 6))]
+              + [(3, 40, 5, 7), (2, 24, 1, 1), (2, 24, 2, 300), (1, 8, 9, 130)])
+
+
+@pytest.mark.parametrize("cout", [63, 64, 72, 90, 100, 200, 384])
+def test_sepconv_plans_cover_the_tensor_and_fit(cout):
+    """Every plan: the narrowest configuration whose block covers Cout
+    (slices of the widest beyond), a band's pairs within the block's
+    pixels, whole rows or bands of a multiple of 8 columns, and a block
+    within the shared-memory budget."""
+    for n, cin, h, w in SEP_SHAPES:
+        p = fused_sepconv.plan(n, cin, cout, h, w)
+        mb, nb = fused_sepconv.TC_CONFIGS[p.cfg]
+        narrower = fused_sepconv.TC_CONFIGS[:p.cfg]
+        assert cout <= mb or p.cfg == len(fused_sepconv.TC_CONFIGS) - 1
+        assert all(cout > m for m, _ in narrower)
+        assert (p.slices - 1) * mb < cout <= p.slices * mb
+        assert 1 <= p.th <= n * h and p.th * fused_sepconv.pair_width(p.tw) <= nb
+        assert p.tw == w or (p.tw % 8 == 0 and p.tw < w)
+        assert fused_sepconv.smem_bytes(p.cfg, cin, p.th, p.tw) <= fused_sepconv.SMEM_BUDGET
+
+
+def emulate_sepconv(x, taps, w, scale, bias, mask, p):
+    """The kernel's arithmetic on its plan ``p``: each band's TH + 2 global
+    rows staged from column c0 - LEFT (zeros outside the tensor), the
+    depthwise of each pair from the 6 staged values of columns c - 2 to
+    c + 3 of each row, a row whose neighbour lies in another image or
+    outside it taking no tap from it, the 1x1 product, then each pixel of
+    the band back to its image, row and column. f32, pre and post the
+    identity."""
+    n, cin, h, wd = x.shape
+    th, tw = p.th, p.tw
+    twp, sw = fused_sepconv.pair_width(tw), fused_sepconv.staged_width(tw)
+    left = fused_sepconv.LEFT
+    rows = n * h
+    xg = x.permute(1, 0, 2, 3).reshape(cin, rows, wd)
+    t = taps.reshape(cin, 3, 3)
+    y = torch.full((n, w.shape[0], h, wd), float("nan"))
+    for g0 in range(0, rows, th):
+        for c0 in range(0, wd, tw):
+            staged = torch.zeros(cin, th + 2, sw)
+            lo, hi = max(0, c0 - left), min(wd, c0 - left + sw)
+            for rr in range(th + 2):
+                if 0 <= g0 - 1 + rr < rows:
+                    staged[:, rr, lo - c0 + left:hi - c0 + left] = xg[:, g0 - 1 + rr, lo:hi]
+            d = torch.zeros(cin, th * twp)
+            for q in range(0, th * twp, 2):
+                r, c = divmod(q, twp)
+                yy = (g0 + r) % h
+                for ky in range(3):
+                    if (ky == 0 and yy == 0) or (ky == 2 and yy == h - 1):
+                        continue
+                    v = staged[:, r + ky, left - 2 + c:left + 4 + c]
+                    d[:, q] += (t[:, ky] * v[:, 1:4]).sum(1)
+                    d[:, q + 1] += (t[:, ky] * v[:, 2:5]).sum(1)
+            z = w.reshape(w.shape[0], cin) @ d * scale[:, None] + bias[:, None]
+            for q in range(th * twp):
+                r, c = divmod(q, twp)
+                if g0 + r >= rows or c >= tw or c0 + c >= wd:
+                    continue
+                img, yy = divmod(g0 + r, h)
+                y[img, :, yy, c0 + c] = z[:, q] * (1.0 if mask is None else mask[img])
+    assert not torch.isnan(y).any(), "a pixel no band wrote"
+    return y
+
+
+@pytest.mark.parametrize("n,cin,cout,h,w", [
+    (3, 8, 64, 5, 7), (2, 8, 100, 3, 20), (2, 16, 200, 2, 300), (3, 8, 72, 4, 9), (2, 8, 64, 1, 1)])
+def test_sepconv_emulation_equals_the_plain_version(n, cin, cout, h, w):
+    """On the plan of a shape (bands spanning images, two column bands, an
+    odd width, single pixels), the emulated kernel's values are the plain
+    version's (f32, up to the order of the sums)."""
+    g = torch.Generator().manual_seed(n * w + cout)
+    x = torch.randn((n, cin, h, w), generator=g)
+    taps = torch.randn((cin, 1, 3, 3), generator=g) / 3
+    wt = torch.randn((cout, cin, 1, 1), generator=g) / cin ** 0.5
+    scale, bias = torch.rand(cout, generator=g) + 0.5, torch.randn(cout, generator=g)
+    mask = ((torch.rand((n, cout), generator=g) < 0.9) / 0.9).float()
+    p = fused_sepconv.plan(n, cin, cout, h, w)
+    want = fused_sepconv.fused_sepconv_plain(x, taps, wt, scale, bias, mask)
+    torch.testing.assert_close(emulate_sepconv(x, taps, wt, scale, bias, mask, p), want,
+                               atol=1e-5, rtol=1e-5)

@@ -27,7 +27,7 @@ torch = pytest.importorskip("torch")
 from bench_torch import harness  # noqa: E402
 from udal_tpu_torch.apps import detect_graph  # noqa: E402
 from udal_tpu_torch.apps.serving import ServingDriver  # noqa: E402
-from udal_tpu_torch.models import mc_fast  # noqa: E402
+from udal_tpu_torch.models import bifpn, mc_fast  # noqa: E402
 from udal_tpu_torch.models.efficientdet import head_only_mc  # noqa: E402
 from udal_tpu_torch.models.efficientnet import ChannelDropout  # noqa: E402
 from udal_tpu_torch.models.ensemble import init_ensemble  # noqa: E402
@@ -200,6 +200,32 @@ def test_stages_give_todays_detect_bit_for_bit(kind):
     spans = [s.span for s in stages]
     assert spans[-1] == "post"
     assert spans.count("model.backbone") == {"mc_fast": 2, "ensemble": 2}.get(kind, 1)
+
+
+@pytest.mark.parametrize("kind", ["head_only_mc", "mc_fast"])
+def test_fused_separable_convs_replay_as_eager_bit_for_bit(kind, monkeypatch):
+    """With the CPU taken as a card for the separable convs (each fused
+    call runs the plain version): eager, capture and two replays give the
+    bits of a twin driver's composed forward under the same masks, and
+    every forward the driver and the twin run makes the fused calls: 8
+    nodes, and a tower layer and a predict conv a head a level."""
+    calls = []
+    real = bifpn.fused_sepconv
+
+    def count(x, *args, **kwargs):
+        calls.append(tuple(x.shape))
+        return real(x, *args, **kwargs)
+
+    monkeypatch.setattr(bifpn, "fused_sepconv", count)
+    monkeypatch.setattr(bifpn, "_kernel_takes", lambda x: True)
+    driver, twin = _driver(kind, backend=FakeGraphs()), _driver(kind)
+    for i in range(4):
+        got = driver.serve_detections_preprocessed(_images(i), _scales(i))
+        _assert_same_bits(got, _today(twin, _images(i), _scales(i)))
+    assert driver.graph_stats == dict(captures=1, replays=2, eager=1)
+    # the driver's forwards: eager, the capture and its replay, two replays;
+    # the twin's four
+    assert len(calls) == (5 + 4) * (8 + 2 * 5 * 2)
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
@@ -391,7 +417,7 @@ def test_new_weights_reach_the_replay():
     fresh = _driver("mc_fast", state=other)
     folds = detect_graph._folds(driver)
     driver.model.load_state_dict(other)
-    driver.model.backbone.prepare_inference()
+    driver.model.prepare_inference()
     assert all(a is b for a, b in zip(folds, detect_graph._folds(driver)))
     for source in (driver, fresh):
         source.masks = ChannelDropout(torch.Generator().manual_seed(21))
@@ -404,9 +430,9 @@ def test_a_fold_replaced_elsewhere_drops_the_graphs():
     driver = _driver("deterministic", backend=FakeGraphs())
     for i in range(3):
         driver.serve_detections_preprocessed(_images(i), _scales(i))
-    driver.model.backbone.drop_folds()
+    driver.model.drop_folds()
     twin = _driver("deterministic")
-    twin.model.backbone.drop_folds()
+    twin.model.drop_folds()
     pool = driver._graphs.pool
     got = driver.serve_detections_preprocessed(_images(3), _scales(3))
     assert driver.graph_stats == dict(captures=1, replays=1, eager=2)

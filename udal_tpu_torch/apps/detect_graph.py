@@ -37,10 +37,11 @@ span's ``pool_bytes``: the bytes of the card's memory the pool holds, which
 nothing, so the pool changes only at a capture, which takes its size.
 
 The graphs read the weights by address: ``load_state_dict`` copies into
-them and ``MBConvBlock.prepare_inference`` refolds into the fold's tensors,
-so replays see new weights; a fold replaced otherwise (``train()``,
-``drop_folds``) drops every graph and the pool. The ``sample`` box decode
-draws noise of its own inside ``post``, so such a driver stays eager.
+them and ``EfficientDetNet.prepare_inference`` refolds into the folds'
+tensors, so replays see new weights; a fold replaced otherwise
+(``train()``, ``drop_folds``) drops every graph and the pool. The
+``sample`` box decode draws noise of its own inside ``post``, so such a
+driver stays eager.
 ``DetectGraphs`` holds no reference to its driver (the driver is passed to
 each call), so a dropped driver frees its graphs and their pool at once.
 """
@@ -94,9 +95,10 @@ class _StaticMasks:
 
 
 def _folds(driver) -> List[Optional[Dict]]:
-    """Every member's MBConv folds, which the graphs read by address."""
-    return [getattr(m.backbone, f"blocks_{i}").folded
-            for m in driver.members for i in range(len(m.backbone.block_args))]
+    """Every member's folds (the MBConv blocks', the separable convs'),
+    which the graphs read by address."""
+    return [m.folded for member in driver.members for m in member.modules()
+            if hasattr(m, "folded")]
 
 
 class CudaGraphs:

@@ -119,7 +119,7 @@ class ServingDriver:
         model = EfficientDetNet(self.config)
         model.load_state_dict(state_dict, strict=True)
         model = model.to(device=self.device, dtype=self.dtype).eval()
-        model.backbone.prepare_inference()
+        model.prepare_inference()
         return model
 
     @classmethod

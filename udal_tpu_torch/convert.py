@@ -197,7 +197,7 @@ def train_state_from_flax(state, step, params: Mapping, batch_stats: Mapping, op
         raise TypeError(f"no optax counterpart for {type(optimizer).__name__}")
     state.ema_params = None if ema_params is None else follow(ema_params)
     state.step = int(np.asarray(step))
-    model.backbone.drop_folds()
+    model.drop_folds()
     return state
 
 

@@ -6,6 +6,17 @@ downsampling, nearest upsampling, and a separable 3x3 conv after each
 fusion. Submodules carry the flax scope names (``cell_0``, ``fnode3``,
 ``resample_0``, ``conv1x1`` ...). Tensors are NCHW.
 
+At inference on a card a separable conv and what follows it (the node's
+activation, its conv bias and BatchNorm; in the heads the per-level
+BatchNorm, the activation and the dropout mask) run as one
+``fused_sepconv`` call where ``takes_fused`` says so: a separable conv,
+eval mode, no autograd, a CUDA bf16 tensor. Its operands are
+the module's fold (``SepConvFold``, made by
+``EfficientDetNet.prepare_inference``), or one made for the call where
+none was made, as ``MBConvBlock`` folds. Otherwise, in train mode, in
+f32, on the CPU and for plain convs, the chain runs as the JAX modules
+write it.
+
 Flax creates a resampling 1x1 conv only where the incoming channel count
 differs from the FPN width, which it learns from the input at init; here
 the incoming widths are passed to the constructors instead.
@@ -20,7 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from udal_tpu_torch.models.efficientnet import BatchNorm, Conv2d, activation_fn, same_pads
+from udal_tpu_torch.models.efficientnet import (BatchNorm, Conv2d, activation_fn, refold,
+                                                same_pads)
+from udal_tpu_torch.ops.fused_sepconv import fold_sepconv_bn, fused_sepconv
 
 
 def bifpn_topology(min_level: int, max_level: int) -> List[Dict[str, Any]]:
@@ -164,6 +177,69 @@ class SeparableConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))
 
+    def fused(self, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              mask: Optional[torch.Tensor] = None, pre: str = "identity",
+              post: str = "identity") -> torch.Tensor:
+        """post(pointwise(depthwise(pre(x))) folded by (scale, bias)) · mask
+        as one ``fused_sepconv`` call (the pointwise bias is in ``bias``);
+        under autocast the weights are cast to x's type, as the chain's
+        convolutions cast them."""
+        taps, w = self.depthwise.weight, self.pointwise.weight
+        if w.dtype != x.dtype:
+            taps, w = taps.to(x.dtype), w.to(x.dtype)
+        return fused_sepconv(x, taps, w, scale, bias, mask, pre, post)
+
+
+class SepConvFold:
+    """A module whose separable conv runs fused at inference: ``fold()``
+    gives the f32 operands (the conv bias and the BatchNorm after it) or
+    None, ``prepare_inference`` keeps them in ``folded``, writing a refold
+    into the tensors of the fold it replaces (a captured CUDA graph reads
+    them by address). Entering or leaving train mode drops the fold, as
+    ``MBConvBlock.train`` does."""
+
+    folded: Optional[Dict[str, torch.Tensor]] = None
+
+    def fold(self) -> Optional[Dict[str, torch.Tensor]]:
+        raise NotImplementedError
+
+    def operands(self) -> Dict[str, torch.Tensor]:
+        """The fused call's operands: the fold, or one made now where
+        ``prepare_inference`` made none (a forward after ``drop_folds``, or
+        of a model never prepared)."""
+        if self.folded is not None:
+            return self.folded
+        with torch.no_grad():
+            return self.fold()
+
+    def prepare_inference(self) -> None:
+        with torch.no_grad():
+            self.folded = refold(self.folded, self.fold())
+
+    def train(self, mode: bool = True):
+        if mode or self.training:
+            self.folded = None
+        return super().train(mode)
+
+
+def _kernel_takes(x: torch.Tensor) -> bool:
+    """Whether the fused kernel takes x: a CUDA bf16 tensor (f32 on the
+    card runs the chain, which is faster there). Tests take any CPU tensor
+    for one here, to run the fused calls' plain version."""
+    return x.is_cuda and x.dtype == torch.bfloat16
+
+
+def takes_fused(conv: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``conv`` and what follows it run as one ``fused_sepconv``
+    call: it is a separable conv in eval mode, no autograd records the
+    call, and the kernel takes x, in the weights' type or under autocast
+    (f32 weights, bf16 activations: a mixed-precision ``eval_step``)."""
+    if not isinstance(conv, SeparableConv) or conv.training or not _kernel_takes(x):
+        return False
+    weight = conv.pointwise.weight
+    return (x.dtype == weight.dtype or torch.is_autocast_enabled(x.device.type)) and not (
+        torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad))
+
 
 def fuse_features(nodes: Sequence[torch.Tensor], weights: Optional[torch.Tensor],
                   weight_method: str) -> torch.Tensor:
@@ -191,7 +267,7 @@ def fuse_features(nodes: Sequence[torch.Tensor], weights: Optional[torch.Tensor]
     raise ValueError(f"unknown weight_method {weight_method!r}")
 
 
-class FNode(nn.Module):
+class FNode(SepConvFold, nn.Module):
     """One BiFPN node: resample inputs → weighted fuse → act+sepconv+BN."""
 
     def __init__(self, feat_level_hw: Tuple[int, int], in_channels: Sequence[int],
@@ -202,6 +278,7 @@ class FNode(nn.Module):
         self.feat_level_hw = feat_level_hw
         self.weight_method = weight_method
         self.conv_bn_act_pattern = conv_bn_act_pattern
+        self.act_type = act_type
         self.act = activation_fn(act_type)
         for i, c in enumerate(in_channels):
             self.add_module(f"resample_{i}", ResampleFeatureMap(
@@ -220,11 +297,24 @@ class FNode(nn.Module):
                                bias=not conv_bn_act_pattern)
         self.bn = BatchNorm(fpn_num_filters)
 
+    def fold(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The separable conv's bias and the node's BatchNorm as f32 (scale,
+        bias) [C]; None for a plain conv."""
+        if not isinstance(self.conv, SeparableConv):
+            return None
+        scale, bias = fold_sepconv_bn(self.bn, self.conv.pointwise.bias)
+        return dict(scale=scale, bias=bias)
+
     def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
         th, tw = self.feat_level_hw
         resampled = [getattr(self, f"resample_{i}")(feat, th, tw)
                      for i, feat in enumerate(inputs)]
         x = fuse_features(resampled, self.edge_weights, self.weight_method)
+        if takes_fused(self.conv, x):
+            acts = (self.act_type, "identity")
+            pre, post = acts[::-1] if self.conv_bn_act_pattern else acts
+            f = self.operands()
+            return self.conv.fused(x, f["scale"], f["bias"], None, pre, post)
         if not self.conv_bn_act_pattern:
             x = self.act(x)
         x = self.bn(self.conv(x))

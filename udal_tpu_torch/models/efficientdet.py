@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from udal_tpu_torch.config import Config, get_feat_sizes, parse_image_size
-from udal_tpu_torch.models.bifpn import FPNCells, ResampleFeatureMap
+from udal_tpu_torch.models.bifpn import FPNCells, ResampleFeatureMap, SepConvFold
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, EfficientNet,
                                                 backbone_spec)
 from udal_tpu_torch.models.heads import (CLASS_PRIOR_BIAS, BoxNet, ClassNet,
@@ -112,6 +112,27 @@ class EfficientDetNet(nn.Module):
             self.seg_head = SegmentationHead(cfg.seg_num_classes, cfg.fpn_num_filters,
                                              num_levels, cfg.act_type)
         self.eval()
+
+    def prepare_inference(self) -> None:
+        """Fold once for the fused kernels, after the weights are loaded and
+        the model is on its device: the backbone's MBConv blocks, and every
+        separable conv's bias with the BatchNorm after it (the BiFPN nodes',
+        each head tower layer's per level, the predict convs'). A refold is
+        written into the folds' tensors, which captured CUDA graphs read by
+        address."""
+        self.backbone.prepare_inference()
+        for m in self.modules():
+            if isinstance(m, SepConvFold):
+                m.prepare_inference()
+
+    def drop_folds(self) -> None:
+        """Forget every fold: weights were loaded into the model in whatever
+        mode it is. Until ``prepare_inference`` folds again, each fused call
+        folds for itself."""
+        self.backbone.drop_folds()
+        for m in self.modules():
+            if isinstance(m, SepConvFold):
+                m.folded = None
 
     def backbone_features(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                           start_block: int = 0) -> List[torch.Tensor]:

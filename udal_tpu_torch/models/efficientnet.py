@@ -357,6 +357,22 @@ def _fold_tensors(fold: Dict) -> List[torch.Tensor]:
     return [t for v in fold.values() for t in (v if isinstance(v, tuple) else (v,))]
 
 
+def refold(old: Optional[Dict], new: Optional[Dict]) -> Optional[Dict]:
+    """The fold to keep: ``new`` written into the tensors of ``old`` where
+    both hold tensors of the same shapes, types and devices under the same
+    keys (a captured CUDA graph reads them by address), else ``new``."""
+    if old is None or new is None or old.keys() != new.keys():
+        return new
+    old_t, new_t = _fold_tensors(old), _fold_tensors(new)
+    if [(t.shape, t.dtype, t.device) for t in old_t] != \
+            [(t.shape, t.dtype, t.device) for t in new_t]:
+        return new
+    with torch.inference_mode():     # the fold may have been made in inference mode
+        for dst, src in zip(old_t, new_t):
+            dst.copy_(src)
+    return old
+
+
 class MBConvBlock(nn.Module):
     """Mobile inverted residual bottleneck with optional SE + MC dropout."""
 
@@ -422,16 +438,7 @@ class MBConvBlock(nn.Module):
         device; a later ``load_state_dict`` or ``to`` calls for a new fold.
         A fold of the same shapes is written into the tensors of the one it
         replaces, which a captured CUDA graph reads by address."""
-        fold, old = self.fold(), self.folded
-        new_t = _fold_tensors(fold)
-        old_t = _fold_tensors(old) if old is not None and old.keys() == fold.keys() else []
-        if [(t.shape, t.dtype, t.device) for t in old_t] != \
-                [(t.shape, t.dtype, t.device) for t in new_t]:
-            self.folded = fold
-            return
-        with torch.inference_mode():     # the fold may have been made in inference mode
-            for dst, src in zip(old_t, new_t):
-                dst.copy_(src)
+        self.folded = refold(self.folded, self.fold())
 
     def train(self, mode: bool = True) -> "MBConvBlock":
         """Entering or leaving train mode drops the fold: an optimizer moves

@@ -10,27 +10,30 @@ that reproduce flax's ``ConvTranspose(padding="SAME")``.
 Flax names these scopes ``class-0``, ``class-0-bn-3``, ``class-predict`` —
 hyphens that cannot be Python attributes — so the heads are
 ``nn.ModuleDict``s keyed by those names, and the state dict keys follow
-the flax paths.
+the flax paths. At inference on a card each tower layer (separable conv,
+the level's BatchNorm, activation, dropout mask) and each predict conv is
+one ``fused_sepconv`` call where ``takes_fused`` says so (``bifpn.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from udal_tpu_torch.models.bifpn import SeparableConv
+from udal_tpu_torch.models.bifpn import SepConvFold, SeparableConv, takes_fused
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
-                                                activation_fn, spatial_dropout)
+                                                activation_fn, dropout_mask, spatial_dropout)
+from udal_tpu_torch.ops.fused_sepconv import fold_sepconv_bn
 
 # focal-loss prior: P(foreground) = 0.01 at init
 CLASS_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
 
-class _HeadStack(nn.ModuleDict):
+class _HeadStack(SepConvFold, nn.ModuleDict):
     """Shared conv tower applied per level with per-(repeat, level) BN."""
 
     def __init__(self, num_levels: int, num_filters: int, repeats: int, prefix: str,
@@ -39,6 +42,8 @@ class _HeadStack(nn.ModuleDict):
         super().__init__()
         self.prefix = prefix
         self.repeats = repeats
+        self.num_levels = num_levels
+        self.act_type = act_type
         self.act = activation_fn(act_type)
         self.survival_prob = survival_prob
         self.mc_dropoutrate = mc_dropoutrate
@@ -49,21 +54,39 @@ class _HeadStack(nn.ModuleDict):
             for level in range(num_levels):
                 self[f"{prefix}-{i}-bn-{level}"] = BatchNorm(num_filters)
 
+    def fold(self) -> Optional[Dict[str, torch.Tensor]]:
+        """Each repeat's separable-conv bias with each level's BatchNorm as
+        f32 (scale, bias) [repeats, levels, C]; None for plain convs."""
+        if not isinstance(self[f"{self.prefix}-0"], SeparableConv):
+            return None
+        folds = [fold_sepconv_bn(self[f"{self.prefix}-{i}-bn-{level}"],
+                                 self[f"{self.prefix}-{i}"].pointwise.bias)
+                 for i in range(self.repeats) for level in range(self.num_levels)]
+        shape = (self.repeats, self.num_levels, -1)
+        return dict(scale=torch.stack([s for s, _ in folds]).view(shape),
+                    bias=torch.stack([b for _, b in folds]).view(shape))
+
     def forward(self, feat: torch.Tensor, level_id: int,
                 masks: Optional[ChannelDropout] = None) -> torch.Tensor:
         x = feat
+        f = self.operands() if takes_fused(self[f"{self.prefix}-0"], x) else None
         for i in range(self.repeats):
             original = x
-            x = self[f"{self.prefix}-{i}"](x)
-            x = self[f"{self.prefix}-{i}-bn-{level_id}"](x)
-            x = self.act(x)
-            x = spatial_dropout(x, self.mc_dropoutrate, masks)
+            if f is not None:
+                mask = dropout_mask(masks, x.shape[0], x.shape[1], self.mc_dropoutrate, x.device)
+                x = self[f"{self.prefix}-{i}"].fused(
+                    x, f["scale"][i, level_id], f["bias"][i, level_id], mask, post=self.act_type)
+            else:
+                x = self[f"{self.prefix}-{i}"](x)
+                x = self[f"{self.prefix}-{i}-bn-{level_id}"](x)
+                x = self.act(x)
+                x = spatial_dropout(x, self.mc_dropoutrate, masks)
             if i > 0 and self.survival_prob:
                 x = x + original
         return x
 
 
-class _Head(nn.ModuleDict):
+class _Head(SepConvFold, nn.ModuleDict):
     """Tower ``stack`` then the ``<prefix>-predict`` conv, level by level."""
 
     def __init__(self, prefix: str, out_channels: int, num_filters: int,
@@ -79,10 +102,27 @@ class _Head(nn.ModuleDict):
                                    if separable_conv else
                                    Conv2d(num_filters, out_channels, 3))
 
+    def fold(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The predict conv's f32 (scale, bias) [Cout]: ones and its bias;
+        None for a plain conv."""
+        predict = self[self.predict_name]
+        if not isinstance(predict, SeparableConv):
+            return None
+        bias = predict.pointwise.bias.detach().to(torch.float32, copy=True)
+        return dict(scale=torch.ones_like(bias), bias=bias)
+
     def forward(self, feats: Sequence[torch.Tensor],
                 masks: Optional[ChannelDropout] = None) -> List[torch.Tensor]:
         predict = self[self.predict_name]
-        return [predict(self["stack"](f, i, masks)) for i, f in enumerate(feats)]
+        outs = []
+        for i, f in enumerate(feats):
+            x = self["stack"](f, i, masks)
+            if takes_fused(predict, x):
+                f = self.operands()
+                outs.append(predict.fused(x, f["scale"], f["bias"]))
+            else:
+                outs.append(predict(x))
+        return outs
 
 
 class ClassNet(_Head):

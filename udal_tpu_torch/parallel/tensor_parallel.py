@@ -116,14 +116,14 @@ class TensorParallel:
         with torch.no_grad():
             for name, t in list(self._state_tensors(state)):
                 t.data = all_gather(t.data, self.group, self.dims[name])
-        state.model.backbone.drop_folds()
+        state.model.drop_folds()
         try:
             yield state
         finally:
             with torch.no_grad():
                 for name, t in list(self._state_tensors(state)):
                     t.data = self._slice(t.data, self.dims[name]).clone()
-            state.model.backbone.drop_folds()
+            state.model.drop_folds()
 
     def square_sums(self, named: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Σ‖t‖² of the whole tensors of a name → slice map: the sliced

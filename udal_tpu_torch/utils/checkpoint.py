@@ -41,7 +41,7 @@ def load_payload(state, payload: Dict[str, Any]):
     ema = payload["ema_params"]
     state.ema_params = None if ema is None else {k: v.to(device).clone()
                                                  for k, v in ema.items()}
-    state.model.backbone.drop_folds()
+    state.model.drop_folds()
     return state
 
 

@@ -58,10 +58,12 @@ MAX_SPANS = 65536
 MARKER = "udal:"
 # the port's kernels by the names a trace of the card gives them, for each
 # wrapper's launch counter: the fused depthwise (fast path, general path),
-# the fused expand + depthwise (bf16, f32), soft-NMS
+# the fused expand + depthwise (bf16, f32), soft-NMS, the fused separable
+# conv
 KERNELS = {"fused_dw": ("fused_dw_rows_kernel", "fused_dw_kernel"),
            "fused_expand_dw": ("expand_dw_tc_kernel", "fused_expand_dw_kernel"),
-           "soft_nms": ("soft_nms_kernel",)}
+           "soft_nms": ("soft_nms_kernel",),
+           "fused_sepconv": ("fused_sepconv_tc_kernel",)}
 
 
 @dataclasses.dataclass(eq=False)
@@ -221,7 +223,8 @@ class KernelLaunches:
     ``stop()`` (or in a ``with`` block), read from a ``torch.profiler``
     trace of CUDA activity: ``counts`` is (fused_dw, fused_expand_dw,
     soft_nms) as ``KERNELS`` names them, ``fast`` the fused depthwise's
-    fast-path launches. A replayed CUDA graph launches its kernels without
+    fast-path launches, ``sepconv`` the fused separable conv's launches.
+    A replayed CUDA graph launches its kernels without
     their wrappers, whose counters see the eager and captured calls alone;
     the trace sees every launch."""
 
@@ -231,12 +234,12 @@ class KernelLaunches:
     MARGIN_S = 0.05
 
     def __init__(self):
-        self.counts, self.fast, self._prof = (0, 0, 0), 0, None
+        self.counts, self.fast, self.sepconv, self._prof = (0, 0, 0), 0, 0, None
 
     def start(self) -> "KernelLaunches":
         """Start a trace (ending one that runs); without a card, count 0."""
         self.stop()
-        self.counts, self.fast = (0, 0, 0), 0
+        self.counts, self.fast, self.sepconv = (0, 0, 0), 0, 0
         if torch.cuda.is_available():
             self._prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -258,8 +261,10 @@ class KernelLaunches:
         def launched(kernel: str) -> int:
             return sum(1 for n in names if re.search(rf"\b{kernel}\b", n))
 
-        self.counts = tuple(sum(launched(k) for k in ks) for ks in KERNELS.values())
+        by_wrapper = {w: sum(launched(k) for k in ks) for w, ks in KERNELS.items()}
+        self.counts = tuple(by_wrapper[w] for w in ("fused_dw", "fused_expand_dw", "soft_nms"))
         self.fast = launched(KERNELS["fused_dw"][0])
+        self.sepconv = by_wrapper["fused_sepconv"]
         return self
 
     __enter__ = start
