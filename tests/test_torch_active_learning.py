@@ -32,6 +32,7 @@ import udal_tpu.apps.active_learning as jax_al  # noqa: E402
 import udal_tpu.apps.al_runner as jax_runner  # noqa: E402
 import udal_tpu.apps.al_scoring as jax_als  # noqa: E402
 import udal_tpu.apps.serving as jax_serving  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import configs, random_variables  # noqa: E402
 from udal_tpu.data.synthetic import write_synthetic_dataset as jax_write  # noqa: E402
 from udal_tpu_torch import cli  # noqa: E402
@@ -48,14 +49,6 @@ STRATEGIES = ["random", "entropy", "mean_entropy", "norm_mcbox", "norm_albox", "
               "nee_entropy", "det_score"]
 CALIB = ["calib_combo", "calib_ental", "calib_alluncert", "calib_mean_epuncert", "calib_sota",
          "calib_entropy", "calib_norm_albox"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def rows_of(n_images=24, seed=0, n_classes=4):

@@ -19,6 +19,7 @@ import yaml
 pytest.importorskip("torch")
 
 import udal_tpu.apps.al_eval as jax_eval  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.apps import al_eval  # noqa: E402
 from udal_tpu_torch.config import load_yaml  # noqa: E402
 from udal_tpu_torch.utils.metrics_writer import MetricsWriter  # noqa: E402

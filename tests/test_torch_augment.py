@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_reader import SEED, configs, record, take  # noqa: E402,F401
 from udal_tpu.data import augment as jax_aug  # noqa: E402
 from udal_tpu.data import autoaugment as jax_aa  # noqa: E402

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from bench_torch import harness  # noqa: E402
 from bench_torch import reference_train as RT  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.utils import profiling  # noqa: E402
 
 CELL = "kitti_mc.train_b8"
@@ -31,14 +32,6 @@ TINY = dict(arch=dict(image_size=[128, 256]),
 LOSS_TOL, UPDATE_TOL = 1e-5, 5e-3
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope="module")
 def stepped():
     """The entry after two kept f32 steps (the second with momentum)."""
@@ -47,10 +40,7 @@ def stepped():
     entry = harness.module("entries", cell["entry"]).Entry(
         harness.load("configs", cell["config"]), mix, harness.seeds_from(2**33 + 5),
         torch.device("cpu"), TINY)
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
     outs = {i: entry.call(i, keep=True) for i in range(2)}
-    torch.set_num_threads(saved)
     return entry, outs
 
 

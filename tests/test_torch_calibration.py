@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from sklearn.isotonic import IsotonicRegression as SkIsotonic  # noqa: E402
 
 import udal_tpu.apps.calibration as jax_cal  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.apps import calibration as cal  # noqa: E402
 from udal_tpu_torch.convert import calibrators_from_jax  # noqa: E402
 

@@ -33,6 +33,7 @@ yaml = pytest.importorskip("yaml")
 
 import jax  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu import cli as jax_cli  # noqa: E402
 from udal_tpu.config import get_detection_config as jax_config  # noqa: E402
 from udal_tpu.eval.coco import COCOEvaluator as JaxCOCOEvaluator  # noqa: E402
@@ -54,14 +55,6 @@ from udal_tpu_torch.utils.checkpoint import latest_checkpoint, save_checkpoint  
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 HPARAMS = ("image_size=64x64,num_classes=8,fpn_cell_repeats=1,box_class_repeats=1,"
            "loss_attenuation=True,mc_dropout=False,map_freq=1,label_map=kitti")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -8,6 +8,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu.eval.coco import COCOEvaluator as JaxEvaluator  # noqa: E402
 from udal_tpu_torch.eval.coco import COCOEvaluator  # noqa: E402
 

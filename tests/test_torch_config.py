@@ -6,6 +6,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu import config as jax_config  # noqa: E402
 from udal_tpu_torch import config as torch_config  # noqa: E402
 

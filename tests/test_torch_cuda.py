@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.ops import cuda_nms, fused_dw, fused_mbconv, nms, packed  # noqa: E402
 from udal_tpu_torch.utils import profiling  # noqa: E402
 
@@ -843,7 +844,7 @@ def test_trained_model_serves_through_the_kernels(no_tf32):
 
     cfg, state, schedule = train_state(no_tf32, mc_dropout=True, mc_dropoutrate=0.05)
     state.model.eval()
-    state.model.backbone.prepare_inference()
+    state.model.prepare_inference()
     before = kernel_counts()
     for seed in (5, 6):
         train_step(cfg, schedule, 10, state, *train_batch(seed))
@@ -857,7 +858,7 @@ def test_trained_model_serves_through_the_kernels(no_tf32):
         torch.cuda.synchronize()
         assert tuple(a - b for a, b in zip(kernel_counts(), before)) == (1, 15, 0)
         fresh = copy.deepcopy(state.model)
-        fresh.backbone.prepare_inference()
+        fresh.prepare_inference()
         want = fresh(x)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -16,6 +16,7 @@ cv2 = pytest.importorskip("cv2")
 
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.ops import cv_ops  # noqa: E402
 from udal_tpu_torch.ops.image_ops import (gaussian_blur_uint8,  # noqa: E402
                                           resize_bilinear_float, resize_bilinear_uint8)

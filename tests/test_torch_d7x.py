@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from bench_torch import harness, weights  # noqa: E402
 from bench_torch import reference_sum as RS  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.config import get_detection_config  # noqa: E402
 from udal_tpu_torch.models import bifpn, efficientdet, efficientnet  # noqa: E402
 from udal_tpu_torch.models.efficientdet import EfficientDetNet, mc_forward  # noqa: E402
@@ -56,14 +57,6 @@ def _small_b7(model_name, survival_prob=None, num_classes=1000):
 @pytest.fixture
 def small_b7(monkeypatch):
     monkeypatch.setattr(efficientdet, "backbone_spec", _small_b7)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _config():
@@ -121,7 +114,7 @@ def test_the_port_computes_the_sum_fusion_reference(small_b7, mc):
     p = RS.run(RS.calibrate, images, p, arch, torch.Generator().manual_seed(5))
     model = EfficientDetNet(program)
     model.load_state_dict(p, strict=True)
-    model.backbone.prepare_inference()
+    model.prepare_inference()
     t = arch["mc_samples"]
     bits = None
     with torch.inference_mode():

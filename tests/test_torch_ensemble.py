@@ -17,6 +17,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import udal_tpu.apps.serving as jax_serving  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import IMAGE, configs, random_variables, torch_model  # noqa: E402
 from tests.test_torch_head_mc import sigma_check  # noqa: E402
 from tests.test_torch_mc import match_detections  # noqa: E402

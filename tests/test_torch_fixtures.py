@@ -1,4 +1,5 @@
-"""Shared inputs for the PyTorch-port parity tests (``tests/test_torch_*.py``).
+"""Shared inputs for the PyTorch-port parity tests (``tests/test_torch_*.py``),
+and their one CPU thread.
 
 The test configuration is EfficientDet-d0 at its published widths, cut to
 128x128 input, 8 classes, one BiFPN cell and one head repeat, with loss
@@ -7,21 +8,42 @@ variable tree (shapes from ``jax.eval_shape`` of the flax init, so no
 flax init runs); both packages get the same numbers, the port through
 ``convert.py``. The tests here hold the port's own layout of that tree
 against flax's.
+
+Every port test file imports ``one_cpu_thread`` from here, by the file's
+own name (``from test_torch_fixtures import one_cpu_thread``: pytest puts
+``tests/`` on the path, and the card's machine has an installed package
+named ``tests``); a test below checks it. This module imports JAX only
+inside the functions that use it, so the card's test files, which run
+where there is no JAX, import it too.
 """
+
+import ast
+import os
+import pathlib
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from udal_tpu import config as jax_config  # noqa: E402
-from udal_tpu.models.efficientdet import EfficientDetNet as JaxNet  # noqa: E402
 from udal_tpu_torch import config as torch_config  # noqa: E402
 from udal_tpu_torch.convert import load_flax, torch_to_flax  # noqa: E402
 from udal_tpu_torch.models.efficientdet import EfficientDetNet  # noqa: E402
+
+
+def one_cpu_thread() -> None:
+    """One CPU thread for torch in this process, and for the processes it
+    starts (``OMP_NUM_THREADS``: the ranks of ``parallel.dryrun.spawn_world``,
+    the reader's workers, subprocesses). The tests run in several worker
+    processes on a few cores, where torch's default of a thread per core
+    makes the workers spin against each other; and some tests compare CPU
+    convolutions bit for bit, which round by thread count. Run once in a
+    process, when this module is first imported, and never undone."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    torch.set_num_threads(1)
+
+
+one_cpu_thread()
 
 IMAGE = 128
 
@@ -35,6 +57,8 @@ def small_overrides(mc: bool = False, samples: int = 3) -> dict:
 
 def configs(mc: bool = False, samples: int = 3, extra: dict = None):
     """(JAX config, port config) with the same overrides, then ``extra``."""
+    from udal_tpu import config as jax_config
+
     out = []
     for api in (jax_config, torch_config):
         cfg = api.get_detection_config("efficientdet-d0")
@@ -55,6 +79,11 @@ _SHAPES = {}
 def flax_shapes(jax_cfg, image: int = IMAGE):
     """The flax variable tree's shapes, traced once per configuration, on
     an ``image`` x ``image`` input (the configuration's canvas)."""
+    import jax
+    import jax.numpy as jnp
+
+    from udal_tpu.models.efficientdet import EfficientDetNet as JaxNet
+
     key = repr(sorted(jax_cfg.as_dict().items()))
     if key not in _SHAPES:
         model = JaxNet(jax_cfg)
@@ -69,6 +98,8 @@ def random_variables(jax_cfg, seed: int = 0, image: int = IMAGE) -> dict:
     drawn from ``seed``. Kernels at lecun-normal scale keep the activations
     of the random network O(1) (He scale lets some seeds grow them to 1e3,
     where float32 parity is a matter of conditioning, not of the port)."""
+    import jax
+
     rng = np.random.RandomState(seed)
 
     def draw(path, leaf):
@@ -109,6 +140,8 @@ def test_port_layout_equals_flax_tree(mc, extra):
     the reverse: ``torch_to_flax`` of a fresh port model reproduces the
     flax variable tree's paths and shapes (with the segmentation head: its
     transposed convs' kernels too)."""
+    import jax
+
     jax_cfg, torch_cfg = configs(mc, extra=extra)
     want = flax_shapes(jax_cfg)
     params, stats = torch_to_flax(EfficientDetNet(torch_cfg))
@@ -116,3 +149,23 @@ def test_port_layout_equals_flax_tree(mc, extra):
         lambda s: np.zeros(s.shape), dict(want["params"]))))
     assert dict(_flat(stats)) == dict(_flat(jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape), dict(want["batch_stats"]))))
+
+
+def test_every_port_test_file_takes_one_cpu_thread():
+    """Every other ``tests/test_torch_*.py`` imports ``one_cpu_thread`` from
+    this module at its top level and sets no thread count of its own, so a
+    new port test file cannot bring back torch's thread per core."""
+    here = pathlib.Path(__file__).resolve()
+    missing, own = [], []
+    for path in sorted(here.parent.glob("test_torch_*.py")):
+        if path == here:
+            continue
+        source = path.read_text()
+        if not any(isinstance(node, ast.ImportFrom) and node.module == "test_torch_fixtures"
+                   and any(a.name == "one_cpu_thread" for a in node.names)
+                   for node in ast.parse(source).body):
+            missing.append(path.name)
+        if "set_num_threads" in source:
+            own.append(path.name)
+    assert (missing, own) == ([], [])
+    assert torch.get_num_threads() == 1 and os.environ["OMP_NUM_THREADS"] == "1"

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu.ops import pallas_dw  # noqa: E402
 from udal_tpu_torch.ops import fused_dw  # noqa: E402
 

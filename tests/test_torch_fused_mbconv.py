@@ -24,6 +24,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import udal_tpu.models.efficientnet as jax_effnet  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_mc import MaskTable, RecordingDropout  # noqa: E402
 from udal_tpu.ops.pallas_mbconv import fused_expand_dw as tpu_fused_expand_dw  # noqa: E402
 from udal_tpu_torch.convert import flax_to_torch  # noqa: E402

@@ -12,11 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.apps.serving import ServingDriver  # noqa: E402
 from udal_tpu_torch.models import bifpn  # noqa: E402
-from udal_tpu_torch.models.bifpn import FNode, SepConvFold, SeparableConv  # noqa: E402
+from udal_tpu_torch.models.bifpn import FNode, SeparableConv  # noqa: E402
 from udal_tpu_torch.models.efficientnet import BatchNorm, ChannelDropout  # noqa: E402
-from udal_tpu_torch.models.heads import _HeadStack  # noqa: E402
+from udal_tpu_torch.models.heads import _Head, _HeadStack  # noqa: E402
 from udal_tpu_torch.ops import fused_sepconv as fs  # noqa: E402
 
 SMALL = dict(image_size="128x128", num_classes=8, loss_attenuation=True, fpn_cell_repeats=1,
@@ -132,7 +133,8 @@ def tiny_driver(seed=3, **extra):
 
 
 def folds(model):
-    return [m.folded for m in model.modules() if isinstance(m, SepConvFold)]
+    """The separable convs' folds, not the MBConv blocks'."""
+    return [m.folded for m in model.modules() if isinstance(m, (FNode, _HeadStack, _Head))]
 
 
 def test_prepare_inference_refolds_into_the_same_tensors():

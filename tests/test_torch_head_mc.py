@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import udal_tpu.apps.serving as jax_serving  # noqa: E402
 import udal_tpu.models.heads as jax_heads  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import (HEAD_ONLY, IMAGE, configs, random_variables,  # noqa: E402
                                        torch_model)
 from tests.test_torch_mc import MaskTable, RecordingDropout, match_detections  # noqa: E402

@@ -33,6 +33,7 @@ from hypothesis import strategies as st
 torch = pytest.importorskip("torch")
 cv2 = pytest.importorskip("cv2")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.data import host_io  # noqa: E402
 from udal_tpu_torch.data import image_codec as ic  # noqa: E402
 from udal_tpu_torch.ops.image_ops import (resize_bilinear_float,  # noqa: E402

@@ -9,6 +9,9 @@ import pytest
 
 pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
+
+
 PORT = pathlib.Path(__file__).resolve().parents[1] / "udal_tpu_torch"
 FORBIDDEN = ("jax", "flax", "yaml", "udal_tpu", "sklearn", "cv2", "PIL", "matplotlib")
 

@@ -42,6 +42,7 @@ import udal_tpu.apps.calibration as jax_cal  # noqa: E402
 import udal_tpu.apps.infer as jax_infer  # noqa: E402
 import udal_tpu.apps.serving as jax_serving  # noqa: E402
 import udal_tpu.apps.validate as jax_validate  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_calibration import assert_calibrators_equal  # noqa: E402
 from tests.test_torch_fixtures import configs, random_variables  # noqa: E402
 from tests.test_torch_visualize import assert_same_image, jax_drawings  # noqa: E402,F401
@@ -113,15 +114,6 @@ def jax_recalibrator(calib_dir, num_classes, class_key):
         return out
 
     return recalibrate
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the driver runs the tests in several workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_cuda import random_batch, score_threshold  # noqa: E402
 from udal_tpu_torch.ops import cuda_nms, fused_dw, fused_sepconv, nms  # noqa: E402
 

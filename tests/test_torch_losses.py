@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import random_variables  # noqa: E402
-from tests.test_torch_train_step import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_train_step import train_configs  # noqa: E402
 from udal_tpu.train import losses as jax_losses  # noqa: E402
 from udal_tpu_torch.convert import flax_to_torch, params_to_flax  # noqa: E402

@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 import udal_tpu.apps.serving as jax_serving  # noqa: E402
 import udal_tpu.models.efficientnet as jax_effnet  # noqa: E402
 import udal_tpu.models.heads as jax_heads  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import IMAGE, configs, random_variables, torch_model  # noqa: E402
 from udal_tpu.models import mc_fast as jax_mc_fast  # noqa: E402
 from udal_tpu.models.efficientdet import EfficientDetNet as JaxNet  # noqa: E402
@@ -134,10 +135,14 @@ def test_shared_prefix_and_fold_match(case):
 
 
 def test_per_sample_forward_from_block1_matches(case):
+    """The ``mc_fast`` stages after the fold (blocks 1-15, the BiFPN and the
+    heads at T·B) against JAX's ``forward_from_block1`` sample by sample."""
+    model = case["model"]
     y = np.asarray(case["y_all"]).transpose(1, 0, 4, 2, 3).reshape(T * B, -1, *case["y_all"].shape[2:4])
+    masks = MaskTable(case["sites"])
     with torch.inference_mode():
-        cls, box = case["model"].forward_from_block1(torch.from_numpy(y.copy()),
-                                                     MaskTable(case["sites"]))
+        feats = model.backbone_features(torch.from_numpy(y.copy()), masks, start_block=1)
+        cls, box = model.head_outputs(model.bifpn(feats), masks, T)
     for g, w in zip(cls + box, case["cls"] + case["box"]):
         np.testing.assert_allclose(g.reshape(w.shape).numpy(), np.asarray(w),
                                    atol=ATOL, rtol=RTOL)

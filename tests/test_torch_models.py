@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import IMAGE, configs, random_variables, torch_model  # noqa: E402
 from udal_tpu.models.efficientdet import EfficientDetNet as JaxNet  # noqa: E402
 from udal_tpu_torch.convert import flax_to_torch, load_flax  # noqa: E402

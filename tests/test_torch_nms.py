@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu.ops import nms as jax_nms  # noqa: E402
 from udal_tpu.ops.pallas_nms import pallas_soft_nms  # noqa: E402
 from tests.test_torch_cuda import assert_same_picks, random_batch, score_threshold  # noqa: E402

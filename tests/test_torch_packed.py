@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.ops import packed  # noqa: E402
 from udal_tpu_torch.tools import perf_packed as port_tool  # noqa: E402
 

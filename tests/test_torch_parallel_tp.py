@@ -28,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_parallel_train import (SPE, mesh_case, rank_batch, rank_inputs,  # noqa: E402
                                              rank_state)
 from udal_tpu_torch.parallel.dryrun import spawn_world  # noqa: E402

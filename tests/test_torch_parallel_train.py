@@ -30,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.parallel.dryrun import spawn_world  # noqa: E402
 
 SPE = 10

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import configs  # noqa: E402
 from tests.test_torch_postprocess import assert_std_close, level_maps  # noqa: E402
 from udal_tpu.ops import postprocess as jax_post  # noqa: E402

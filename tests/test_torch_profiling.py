@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu.utils import profiling as jax_profiling  # noqa: E402
 from udal_tpu_torch.utils import profiling  # noqa: E402
 

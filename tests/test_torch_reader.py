@@ -27,6 +27,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu.config import get_detection_config as jax_config  # noqa: E402
 from udal_tpu.data import composition as jax_comp  # noqa: E402
 from udal_tpu.data import dataset_creators as jax_creators  # noqa: E402

@@ -18,6 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu import config as jax_config  # noqa: E402
 from udal_tpu.train import schedules as jax_schedules  # noqa: E402
 from udal_tpu_torch import config as torch_config  # noqa: E402

@@ -18,6 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from flax import linen as fnn  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import IMAGE, SEGMENTATION, configs, random_variables  # noqa: E402
 from tests.test_torch_serving_surface import assert_same_packed  # noqa: E402
 from udal_tpu.models.efficientdet import EfficientDetModel as JaxModel  # noqa: E402

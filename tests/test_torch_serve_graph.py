@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from bench_torch import harness  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.apps import detect_graph  # noqa: E402
 from udal_tpu_torch.apps.serving import ServingDriver  # noqa: E402
 from udal_tpu_torch.models import bifpn, mc_fast  # noqa: E402
@@ -45,15 +46,6 @@ HEAD_ONLY = dict(mc_dropout=True, mc_classheadrate=0.05, mc_boxheadrate=0.05,
                  enable_softmax=True)
 KINDS = {"deterministic": dict(mc_dropout=False), "head_only_mc": HEAD_ONLY, "mc_fast": MC,
          "mc": dict(MC, mc_fast_fold=False), "ensemble": dict(mc_dropout=False)}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the CPU's convolutions round alike in every call."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _copy_into(dst, src):

@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import udal_tpu.apps.ssl as jax_ssl  # noqa: E402
 import udal_tpu.apps.ssl_utils as jax_utils  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_active_learning import rows_of  # noqa: E402
 from udal_tpu.data.synthetic import write_synthetic_dataset as jax_write  # noqa: E402
 from udal_tpu_torch import cli  # noqa: E402
@@ -39,14 +40,6 @@ from udal_tpu_torch.data.image_codec import decode_image  # noqa: E402
 TINY = "image_size=64x64,num_classes=3,fpn_cell_repeats=1,box_class_repeats=1"
 STRATEGIES = ["score", "combo", "calib_combo", "alluncert", "calib_alluncert", "epuncert",
               "ental", "calib_ental"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

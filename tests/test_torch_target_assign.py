@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu import config as jax_config  # noqa: E402
 from udal_tpu.data.labels import build_labels as jax_build_labels  # noqa: E402
 from udal_tpu.ops import anchors as jax_anchors  # noqa: E402

@@ -21,6 +21,7 @@ from hypothesis import strategies as st
 
 pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu.data import example_codec as jax_codec  # noqa: E402
 from udal_tpu.data import tfrecord as jax_tfr  # noqa: E402
 from udal_tpu_torch.data import example_codec as codec  # noqa: E402

@@ -23,6 +23,7 @@ from sklearn.metrics import roc_curve as sk_roc_curve  # noqa: E402
 import udal_tpu.apps.thresholding as jax_thr  # noqa: E402
 import udal_tpu.apps.uncertainty_analysis as jax_ua  # noqa: E402
 import udal_tpu.data.label_maps as jax_maps  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.apps import thresholding as thr  # noqa: E402
 from udal_tpu_torch.apps import uncertainty_analysis as ua  # noqa: E402
 from udal_tpu_torch.data import label_maps  # noqa: E402

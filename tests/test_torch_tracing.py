@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import HEAD_ONLY, IMAGE, small_overrides  # noqa: E402
 from udal_tpu_torch.apps.serving import ServingDriver  # noqa: E402
 from udal_tpu_torch.utils import profiling  # noqa: E402

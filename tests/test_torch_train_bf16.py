@@ -38,11 +38,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import udal_tpu.models.efficientnet as jax_effnet  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import random_variables  # noqa: E402
 from tests.test_torch_fused_mbconv import random_block_variables  # noqa: E402
 from tests.test_torch_losses import detection_case  # noqa: E402
 from tests.test_torch_mc import MaskTable, RecordingDropout  # noqa: E402
-from tests.test_torch_train_step import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_train_step import (jax_state, jax_stepper, keep_bits,  # noqa: E402
                                          leaves, make_batch, multipliers, port_state,
                                          run_port, site_shapes, train_configs)

@@ -17,8 +17,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import random_variables  # noqa: E402
-from tests.test_torch_train_step import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_train_step import (B, IMAGE, assert_grads_close,  # noqa: E402
                                          assert_state_close, assert_values_close, jax_state,
                                          jax_stepper, keep_bits, make_batch, multipliers,

@@ -28,8 +28,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import random_variables  # noqa: E402
-from tests.test_torch_train_step import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_train_step import (SPE, assert_state_close, jax_state,  # noqa: E402
                                          jax_stepper, make_batch, port_state,
                                          train_configs)

@@ -42,6 +42,7 @@ from flax import linen as flax_nn  # noqa: E402
 import udal_tpu.models.efficientnet as jax_effnet  # noqa: E402
 import udal_tpu.models.heads as jax_heads  # noqa: E402
 import udal_tpu.train.train_lib as jax_train_lib  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from tests.test_torch_fixtures import random_variables, small_overrides  # noqa: E402
 from tests.test_torch_mc import MaskTable  # noqa: E402
 from udal_tpu import config as jax_config  # noqa: E402
@@ -67,19 +68,6 @@ TREE_TOL = 2e-4
 # gradients (and the momentum, their sum): the whole tree's relative L2 error; after one
 # step, each leaf that is not noise within GRAD_LEAF_TOL of its largest value
 GRAD_L2_TOL, GRAD_LEAF_TOL = 1e-2, 3e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for torch while a module of these tests runs:
-    the tests run in several worker processes on a few cores, where
-    torch's default of a thread per core makes the workers spin against
-    each other (these files took 432 s together that way, 74 s with one
-    thread each)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def train_configs(mc: bool = True, **extra):
@@ -426,7 +414,7 @@ def test_trained_model_serves_through_the_fused_calls_with_a_fresh_fold(setup, m
     torch_cfg = setup["torch_cfg"]
     state, schedule = port_state(torch_cfg, setup["variables"])
     state.model.eval()
-    state.model.backbone.prepare_inference()           # a fold of the initial weights
+    state.model.prepare_inference()           # a fold of the initial weights
     counts = CallCounts(monkeypatch)
     for images, labels in setup["batches"][:2]:
         train_lib.train_step(torch_cfg, schedule, SPE, state, images, labels)
@@ -439,7 +427,7 @@ def test_trained_model_serves_through_the_fused_calls_with_a_fresh_fold(setup, m
     assert (counts.dw, counts.expand) == (1, 15)
     fresh = copy.deepcopy(state.model)
     fresh.load_state_dict(state.model.state_dict())
-    fresh.backbone.prepare_inference()
+    fresh.prepare_inference()
     with torch.no_grad():
         want = fresh(x)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):

@@ -25,6 +25,7 @@ cv2 = pytest.importorskip("cv2")
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
 import udal_tpu.utils.uncert_plots as jax_plots  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.data.image_codec import decode_image  # noqa: E402
 from udal_tpu_torch.ops import cv_ops  # noqa: E402
 from udal_tpu_torch.utils import uncert_plots as plots  # noqa: E402

@@ -31,6 +31,7 @@ cv2 = pytest.importorskip("cv2")
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
 import udal_tpu.utils.visualize as jax_vis  # noqa: E402
+from test_torch_fixtures import one_cpu_thread  # noqa: E402,F401
 from udal_tpu_torch.ops import cv_ops, text_glyphs, text_metrics  # noqa: E402
 from udal_tpu_torch.utils import visualize as vis  # noqa: E402
 

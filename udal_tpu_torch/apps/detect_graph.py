@@ -54,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from udal_tpu_torch.models.efficientnet import KernelFold
 from udal_tpu_torch.models.stages import Stage, run_stages, span_of
 from udal_tpu_torch.ops.postprocess import Detections
 from udal_tpu_torch.utils import profiling
@@ -98,7 +99,7 @@ def _folds(driver) -> List[Optional[Dict]]:
     """Every member's folds (the MBConv blocks', the separable convs'),
     which the graphs read by address."""
     return [m.folded for member in driver.members for m in member.modules()
-            if hasattr(m, "folded")]
+            if isinstance(m, KernelFold)]
 
 
 class CudaGraphs:

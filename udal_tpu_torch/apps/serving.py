@@ -84,8 +84,9 @@ class ServingDriver:
     as ``device="cpu"``. The compute dtype is bf16 on a CUDA device and f32
     on the CPU unless ``dtype`` is given. MC-dropout masks come from a
     ``torch.Generator`` seeded with ``mc_seed``; ``self.masks`` is the
-    source the forward draws from. ``batch_size`` is kept for the callers'
-    signatures; nothing here reads it.
+    source the forward draws from. ``batch_size`` is the rows of one serve
+    in ``serve_sharded``, which cuts a rank's rows into batches of it; the
+    other entries serve the batch they are given.
     """
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],

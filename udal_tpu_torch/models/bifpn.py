@@ -11,9 +11,9 @@ activation, its conv bias and BatchNorm; in the heads the per-level
 BatchNorm, the activation and the dropout mask) run as one
 ``fused_sepconv`` call where ``takes_fused`` says so: a separable conv,
 eval mode, no autograd, a CUDA bf16 tensor. Its operands are
-the module's fold (``SepConvFold``, made by
+the module's fold (``efficientnet.KernelFold``, kept by
 ``EfficientDetNet.prepare_inference``), or one made for the call where
-none was made, as ``MBConvBlock`` folds. Otherwise, in train mode, in
+none was kept, as ``MBConvBlock`` folds. Otherwise, in train mode, in
 f32, on the CPU and for plain convs, the chain runs as the JAX modules
 write it.
 
@@ -31,8 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from udal_tpu_torch.models.efficientnet import (BatchNorm, Conv2d, activation_fn, refold,
-                                                same_pads)
+from udal_tpu_torch.models.efficientnet import (BatchNorm, Conv2d, KernelFold,
+                                                activation_fn, same_pads)
 from udal_tpu_torch.ops.fused_sepconv import fold_sepconv_bn, fused_sepconv
 
 
@@ -190,38 +190,6 @@ class SeparableConv(nn.Module):
         return fused_sepconv(x, taps, w, scale, bias, mask, pre, post)
 
 
-class SepConvFold:
-    """A module whose separable conv runs fused at inference: ``fold()``
-    gives the f32 operands (the conv bias and the BatchNorm after it) or
-    None, ``prepare_inference`` keeps them in ``folded``, writing a refold
-    into the tensors of the fold it replaces (a captured CUDA graph reads
-    them by address). Entering or leaving train mode drops the fold, as
-    ``MBConvBlock.train`` does."""
-
-    folded: Optional[Dict[str, torch.Tensor]] = None
-
-    def fold(self) -> Optional[Dict[str, torch.Tensor]]:
-        raise NotImplementedError
-
-    def operands(self) -> Dict[str, torch.Tensor]:
-        """The fused call's operands: the fold, or one made now where
-        ``prepare_inference`` made none (a forward after ``drop_folds``, or
-        of a model never prepared)."""
-        if self.folded is not None:
-            return self.folded
-        with torch.no_grad():
-            return self.fold()
-
-    def prepare_inference(self) -> None:
-        with torch.no_grad():
-            self.folded = refold(self.folded, self.fold())
-
-    def train(self, mode: bool = True):
-        if mode or self.training:
-            self.folded = None
-        return super().train(mode)
-
-
 def _kernel_takes(x: torch.Tensor) -> bool:
     """Whether the fused kernel takes x: a CUDA bf16 tensor (f32 on the
     card runs the chain, which is faster there). Tests take any CPU tensor
@@ -267,7 +235,7 @@ def fuse_features(nodes: Sequence[torch.Tensor], weights: Optional[torch.Tensor]
     raise ValueError(f"unknown weight_method {weight_method!r}")
 
 
-class FNode(SepConvFold, nn.Module):
+class FNode(KernelFold, nn.Module):
     """One BiFPN node: resample inputs → weighted fuse → act+sepconv+BN."""
 
     def __init__(self, feat_level_hw: Tuple[int, int], in_channels: Sequence[int],

@@ -27,9 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from udal_tpu_torch.config import Config, get_feat_sizes, parse_image_size
-from udal_tpu_torch.models.bifpn import FPNCells, ResampleFeatureMap, SepConvFold
+from udal_tpu_torch.models.bifpn import FPNCells, ResampleFeatureMap
 from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, EfficientNet,
-                                                backbone_spec)
+                                                KernelFold, backbone_spec)
 from udal_tpu_torch.models.heads import (CLASS_PRIOR_BIAS, BoxNet, ClassNet,
                                          ConvTransposeSame, SegmentationHead)
 from udal_tpu_torch.ops.postprocess import per_class_nms, postprocess_global
@@ -115,23 +115,21 @@ class EfficientDetNet(nn.Module):
 
     def prepare_inference(self) -> None:
         """Fold once for the fused kernels, after the weights are loaded and
-        the model is on its device: the backbone's MBConv blocks, and every
-        separable conv's bias with the BatchNorm after it (the BiFPN nodes',
-        each head tower layer's per level, the predict convs'). A refold is
-        written into the folds' tensors, which captured CUDA graphs read by
-        address."""
-        self.backbone.prepare_inference()
+        the model is on its device: every ``KernelFold`` module's (the
+        backbone's MBConv blocks; each separable conv's bias with the
+        BatchNorm after it: the BiFPN nodes', each head tower layer's per
+        level, the predict convs'). A refold is written into the folds'
+        tensors, which captured CUDA graphs read by address."""
         for m in self.modules():
-            if isinstance(m, SepConvFold):
+            if isinstance(m, KernelFold):
                 m.prepare_inference()
 
     def drop_folds(self) -> None:
         """Forget every fold: weights were loaded into the model in whatever
         mode it is. Until ``prepare_inference`` folds again, each fused call
         folds for itself."""
-        self.backbone.drop_folds()
         for m in self.modules():
-            if isinstance(m, SepConvFold):
+            if isinstance(m, KernelFold):
                 m.folded = None
 
     def backbone_features(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
@@ -190,12 +188,6 @@ class EfficientDetNet(nn.Module):
         [, segmentation logits]."""
         x = images.permute(0, 3, 1, 2).contiguous()
         return self.head_outputs(self.features(x, masks), masks)
-
-    def forward_from_block1(self, x: torch.Tensor,
-                            masks: Optional[ChannelDropout] = None) -> Outputs:
-        """NCHW block-1 input → NHWC outputs: the per-sample part of the
-        fast MC path (the stem and block 0 run once outside)."""
-        return self.head_outputs(self.features(x, masks, start_block=1), masks)
 
 
 def init_flax_style(model: EfficientDetNet, generator: torch.Generator) -> None:

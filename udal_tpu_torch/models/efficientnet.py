@@ -373,7 +373,45 @@ def refold(old: Optional[Dict], new: Optional[Dict]) -> Optional[Dict]:
     return old
 
 
-class MBConvBlock(nn.Module):
+class KernelFold:
+    """A module whose fused kernel reads operands made from its weights:
+    its fold, f32 tensors with inference BatchNorm folded in. ``fold()``
+    makes them (None where the module runs no kernel); ``prepare_inference``
+    keeps them in ``folded``; ``operands()`` gives the kept fold, or one made
+    for the call; entering or leaving train mode drops the fold, since an
+    optimizer moves the weights it was made from.
+    ``EfficientDetNet.prepare_inference`` and ``drop_folds`` walk every
+    module of this type. Listed before ``nn.Module`` among the bases."""
+
+    folded: Optional[Dict[str, torch.Tensor]] = None
+
+    def fold(self) -> Optional[Dict[str, torch.Tensor]]:
+        raise NotImplementedError
+
+    def operands(self) -> Dict[str, torch.Tensor]:
+        """The fused call's operands: the kept fold, or one made now where
+        ``prepare_inference`` made none (a forward after ``drop_folds`` or
+        train mode, or of a model never prepared)."""
+        if self.folded is not None:
+            return self.folded
+        with torch.no_grad():
+            return self.fold()
+
+    def prepare_inference(self) -> None:
+        """Fold once, after the weights are loaded and the module is on its
+        device; a later ``load_state_dict`` or ``to`` calls for a new fold.
+        A fold of the same shapes is written into the tensors of the one it
+        replaces, which a captured CUDA graph reads by address."""
+        with torch.no_grad():
+            self.folded = refold(self.folded, self.fold())
+
+    def train(self, mode: bool = True):
+        if mode or self.training:
+            self.folded = None
+        return super().train(mode)
+
+
+class MBConvBlock(KernelFold, nn.Module):
     """Mobile inverted residual bottleneck with optional SE + MC dropout."""
 
     def __init__(self, block_args: BlockArgs, in_channels: int,
@@ -405,7 +443,6 @@ class MBConvBlock(nn.Module):
         self.bn2 = BatchNorm(a.output_filters, bn_epsilon, bn_momentum)
         self.residual = (a.id_skip and all(s == 1 for s in a.strides)
                          and a.input_filters == a.output_filters)
-        self.folded: Optional[Dict[str, torch.Tensor]] = None
         # (model group, rank in it, its size) when the block's front half
         # runs on a slice of its channels (parallel/tensor_parallel.py)
         self.tp: Optional[Tuple[object, int, int]] = None
@@ -420,34 +457,17 @@ class MBConvBlock(nn.Module):
         from udal_tpu_torch.ops.fused_dw import fold_bn  # ops/fused_dw imports this module
         from udal_tpu_torch.ops.fused_mbconv import split_weights
 
-        with torch.no_grad():
-            bn1 = self.bn1
-            s1, b1 = fold_bn(bn1.weight, bn1.bias, bn1.running_mean, bn1.running_var, bn1.eps)
-            taps = self.depthwise_conv.weight[:, 0].float()
-            if self.expand_conv is None:
-                return dict(taps=taps.contiguous(), scale=s1, bias=b1)
-            bn0 = self.bn0
-            s0, b0 = fold_bn(bn0.weight, bn0.bias, bn0.running_mean, bn0.running_var, bn0.eps)
-            we = self.expand_conv.weight[:, :, 0, 0].float() * s0[:, None]
-            we = we.t().contiguous()
-            return dict(we=we, we_split=split_weights(we), b0=b0,
-                        wd=(taps * s1[:, None, None]).contiguous(), b1=b1)
-
-    def prepare_inference(self) -> None:
-        """Fold once, after the weights are loaded and the module is on its
-        device; a later ``load_state_dict`` or ``to`` calls for a new fold.
-        A fold of the same shapes is written into the tensors of the one it
-        replaces, which a captured CUDA graph reads by address."""
-        self.folded = refold(self.folded, self.fold())
-
-    def train(self, mode: bool = True) -> "MBConvBlock":
-        """Entering or leaving train mode drops the fold: an optimizer moves
-        the weights it was made from, and eval mode then folds afresh each
-        call until ``prepare_inference`` folds again. A block is built in
-        eval mode."""
-        if mode or self.training:
-            self.folded = None
-        return super().train(mode)
+        bn1 = self.bn1
+        s1, b1 = fold_bn(bn1.weight, bn1.bias, bn1.running_mean, bn1.running_var, bn1.eps)
+        taps = self.depthwise_conv.weight[:, 0].float()
+        if self.expand_conv is None:
+            return dict(taps=taps.contiguous(), scale=s1, bias=b1)
+        bn0 = self.bn0
+        s0, b0 = fold_bn(bn0.weight, bn0.bias, bn0.running_mean, bn0.running_var, bn0.eps)
+        we = self.expand_conv.weight[:, :, 0, 0].float() * s0[:, None]
+        we = we.t().contiguous()
+        return dict(we=we, we_split=split_weights(we), b0=b0,
+                    wd=(taps * s1[:, None, None]).contiguous(), b1=b1)
 
     def forward_unfused(self, x: torch.Tensor,
                         masks: Optional[ChannelDropout] = None) -> torch.Tensor:
@@ -514,7 +534,7 @@ class MBConvBlock(nn.Module):
 
         inputs = x
         x = x.contiguous()
-        f = self.folded if self.folded is not None else self.fold()
+        f = self.operands()
         n, c = x.shape[0], self.bn1.weight.shape[0]
         k, s = self.depthwise_conv.kernel_size[0], self.depthwise_conv.stride[0]
         rate = self.mc_dropoutrate
@@ -576,17 +596,6 @@ class EfficientNet(nn.Module):
             if self.is_reduction[idx]:
                 self.reduction_channels.append(channels)
         self.eval()
-
-    def prepare_inference(self) -> None:
-        """Fold every block's BatchNorms into its fused call's operands."""
-        for idx in range(len(self.block_args)):
-            getattr(self, f"blocks_{idx}").prepare_inference()
-
-    def drop_folds(self) -> None:
-        """Forget every block's fold: weights were loaded into the model
-        in whatever mode it is."""
-        for idx in range(len(self.block_args)):
-            getattr(self, f"blocks_{idx}").folded = None
 
     def forward(self, x: torch.Tensor, masks: Optional[ChannelDropout] = None,
                 start_block: int = 0) -> List[Optional[torch.Tensor]]:

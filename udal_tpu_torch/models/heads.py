@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from udal_tpu_torch.models.bifpn import SepConvFold, SeparableConv, takes_fused
-from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d,
+from udal_tpu_torch.models.bifpn import SeparableConv, takes_fused
+from udal_tpu_torch.models.efficientnet import (BatchNorm, ChannelDropout, Conv2d, KernelFold,
                                                 activation_fn, dropout_mask, spatial_dropout)
 from udal_tpu_torch.ops.fused_sepconv import fold_sepconv_bn
 
@@ -33,7 +33,7 @@ from udal_tpu_torch.ops.fused_sepconv import fold_sepconv_bn
 CLASS_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
 
-class _HeadStack(SepConvFold, nn.ModuleDict):
+class _HeadStack(KernelFold, nn.ModuleDict):
     """Shared conv tower applied per level with per-(repeat, level) BN."""
 
     def __init__(self, num_levels: int, num_filters: int, repeats: int, prefix: str,
@@ -86,7 +86,7 @@ class _HeadStack(SepConvFold, nn.ModuleDict):
         return x
 
 
-class _Head(SepConvFold, nn.ModuleDict):
+class _Head(KernelFold, nn.ModuleDict):
     """Tower ``stack`` then the ``<prefix>-predict`` conv, level by level."""
 
     def __init__(self, prefix: str, out_channels: int, num_filters: int,

@@ -63,7 +63,7 @@ def mc_shared_prefix(model: EfficientDetNet, images: torch.Tensor
     scale, bias = _bn_affine(bb.stem_bn, dtype)
     x = act(bb.stem_conv(x) * scale[:, None, None] + bias[:, None, None])
     b0 = bb.blocks_0
-    f = b0.folded if b0.folded is not None else b0.fold()
+    f = b0.operands()
     return fused_depthwise(x.contiguous(), f["taps"], f["scale"], f["bias"], None,
                            b0.depthwise_conv.stride[0], "swish", want_mean=True)
 
