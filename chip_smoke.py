@@ -41,7 +41,12 @@ exit code:
    (the unfused block code), from CUDA events (the depthwise at the MC
    prefix on its fast path, which it must take, beside its general path,
    held to the same tolerances); then the bf16 expand
-   kernel's time at each of d0's 15 expand blocks at T*B=80 and their sum.
+   kernel's time at each of d0's 15 expand blocks at T*B=80 and their sum,
+   and at each distinct expand block of B7 at d7x's 1536x768 and B=8: the
+   planned launch (16-byte copies, the weights streamed through the ring)
+   and the resident layout (plain loads), each held to the plain version
+   within 2 + 1 bf16 ulps and SE sums to 1e-3, y equal bit for bit between
+   the two; each time beside its tile, its bound and the launches a serve.
    - the fused separable conv (``SEPCONV_CASES``), one launch a level:
      in bf16 a tower layer, a BiFPN node and the two predict convs at
      d0's five levels of 1024x512 (the heads at T*B=320, the BiFPN at
@@ -244,6 +249,7 @@ time). The last line is ``{"ok": true, "device":
 """
 
 import ast
+import collections
 import contextlib
 import hashlib
 import itertools
@@ -366,6 +372,11 @@ EXPAND_BLOCKS = [(i, a.input_filters, a.input_filters * a.expand_ratio, h, w, a.
                   a.strides[0])
                  for i, (a, h, w) in enumerate(block_input_sizes(backbone_spec("efficientnet-b0"),
                                                                  256, 512)) if i > 0]
+# B7's expanding blocks at d7x's 1536x768: {(Cin, Ce, H, W, k, s): launches a serve}
+B7_EXPAND = collections.Counter(
+    (a.input_filters, a.input_filters * a.expand_ratio, h, w, a.kernel_size, a.strides[0])
+    for a, h, w in block_input_sizes(backbone_spec("efficientnet-b7"), 384, 768)
+    if a.expand_ratio > 1)
 # the card's data-sheet rates (H100 SXM, 700 W): bytes/s, bf16 tensor-core
 # and f32 FLOP/s
 HBM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
@@ -448,12 +459,13 @@ def ptxas_summary(name):
         if m:
             base = re.search(r"(soft_nms_kernel|fused_dw_kernel|fused_dw_rows_kernel|"
                              r"fused_expand_dw_kernel|fused_sepconv_tc_kernel|"
-                             r"expand_dw_tc_kernel|sum_partials|packed_pointwise_gmma_kernel|"
+                             r"expand_dw_tc_kernel_streamed|expand_dw_tc_kernel|sum_partials|"
+                             r"packed_pointwise_gmma_kernel|"
                              r"packed_pointwise_kernel|"
                              r"wshift_kernel|add_one_kernel|dw_w3_kernel)(I.*?EE)?", m.group(1))
             args = base.group(2) or ""
             kind = ("bf16" if "bfloat16" in args or base.group(1) in (
-                "expand_dw_tc_kernel", "fused_sepconv_tc_kernel")
+                "expand_dw_tc_kernel", "expand_dw_tc_kernel_streamed", "fused_sepconv_tc_kernel")
                     else ("f32" if args.startswith("If")
                           or base.group(1) == "fused_expand_dw_kernel" else ""))
             entry = base.group(1) + "<" + ",".join(
@@ -477,7 +489,11 @@ def tensor_core_instructions(name):
 
 def time_expand_blocks(dev, rng, smi):
     """Phase 3: the bf16 expand kernel at each of d0's 15 expand blocks at
-    T*B = 80. Returns {block: ms}."""
+    T*B = 80, then at each distinct expand block of B7 at d7x's 1536x768
+    and B = 8: the planned launch (16-byte copies, weights streamed) and
+    the resident layout (plain loads: the split weights 2 bytes off an
+    aligned address) each held to the plain version, y equal bit for bit
+    between the two, and both timed. Returns {block: ms} of d0's blocks."""
     times = {}
     for i, cin, ce, h, w, k, s in EXPAND_BLOCKS:
         o = fused_operands(rng, 80, cin, ce, h, w, k, dev, torch.bfloat16)
@@ -485,14 +501,65 @@ def time_expand_blocks(dev, rng, smi):
                 fused_mbconv.split_weights(o["we"]))
         times[i] = cuda_median_ms(lambda: fused_mbconv.fused_expand_dw_cuda(*args), runs=15,
                                   warmup=3)
-        th, tw = fused_mbconv.tc_tile_shape(-(-h // s), -(-w // s), cin, s, k)
+        th, tw, streamed = fused_mbconv.tc_tile_shape(-(-h // s), -(-w // s), cin, s, k)
         b_ms, b_by = expand_bound(80, cin, ce, h, w, k, s)
         phase(3, f"fused_expand_dw bf16 block {i}: 80x{cin}->{ce} {h}x{w} k{k} s{s}, tile "
-                 f"{th}x{tw}: {times[i]:.4f} ms; bound {b_ms:.4f} ms ({b_by}); {smi}")
+                 f"{th}x{tw} {'streamed' if streamed else 'resident'}: {times[i]:.4f} ms; "
+                 f"bound {b_ms:.4f} ms ({b_by}); {smi}")
         del o, args
     phase(3, f"fused_expand_dw bf16 over the 15 blocks: {sum(times.values()):.4f} ms "
              f"(kernel medians, one call each); {smi}")
+    total = {"planned": 0.0, "resident": 0.0, "bound": 0.0}
+    for (cin, ce, h, w, k, s), count in sorted(B7_EXPAND.items()):
+        o = fused_operands(rng, 8, cin, ce, h, w, k, dev, torch.bfloat16)
+        args = (o["x"], o["we"], o["b0"], o["m1"], o["wd"], o["b1"], o["m2"], s, k, "swish")
+        split = fused_mbconv.split_weights(o["we"])
+        plain_loads = tuple(two_bytes_off(t) for t in split)
+        ho, wo = -(-h // s), -(-w // s)
+        plan = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k)
+        resident = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k, vec=False)
+        launch = {"planned": lambda: fused_mbconv.fused_expand_dw_cuda(*args, split),
+                  "resident": lambda: fused_mbconv.fused_expand_dw_cuda(*args, plain_loads)}
+        want = fused_mbconv.fused_expand_dw_plain(*args[:-1])
+        outs = {layout: fn() for layout, fn in launch.items()}
+        torch.cuda.synchronize()
+        errs = []
+        for layout, out in outs.items():
+            excess, in_top = bf16_excess(out[0], want[0], 2, 1)
+            if excess > 0:
+                raise AssertionError(f"fused_expand_dw d7x {cin}->{ce} k{k} s{s}, {layout} "
+                                     f"launch: y beyond 2 + 1 top bf16 ulps by {excess}")
+            torch.testing.assert_close(out[1], want[1], rtol=1e-3,
+                                       atol=1e-3 * float(want[1].abs().max()))
+            se_err = float((out[1] - want[1]).abs().max() / want[1].abs().max())
+            errs.append(f"{layout} max err {in_top:.2f} ulp of max|y|, SE {se_err:.3g}")
+        if not torch.equal(outs["planned"][0], outs["resident"][0]):
+            raise AssertionError(f"d7x {cin}->{ce} k{k} s{s}: the streamed layout's y "
+                                 f"differs from the resident one's")
+        ms = {layout: cuda_median_ms(fn, runs=15, warmup=3) for layout, fn in launch.items()}
+        b_ms, b_by = expand_bound(8, cin, ce, h, w, k, s)
+        phase(3, f"fused_expand_dw bf16 d7x 8x{cin}->{ce} {h}x{w} k{k} s{s} ({count} a serve), "
+                 f"tile {plan.th}x{plan.tw} {'streamed' if plan.streamed else 'resident'}: "
+                 f"{ms['planned']:.4f} ms; resident, plain loads, {resident.th}x{resident.tw}: "
+                 f"{ms['resident']:.4f} ms; against the plain version: {'; '.join(errs)}; "
+                 f"bound {b_ms:.4f} ms ({b_by}); {smi}")
+        total["planned"] += count * ms["planned"]
+        total["resident"] += count * ms["resident"]
+        total["bound"] += count * b_ms
+        del o, args, split, plain_loads, want, outs
+    phase(3, f"fused_expand_dw bf16 over d7x's {sum(B7_EXPAND.values())} launches: "
+             f"{total['planned']:.4f} ms as planned, {total['resident']:.4f} ms resident with "
+             f"plain loads; bound {total['bound']:.4f} ms; {smi}")
     return times
+
+
+def two_bytes_off(t):
+    """A copy of ``t`` 2 bytes off an aligned address, which the bf16
+    expand kernel's 16-byte copies cannot take."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def bf16_excess(got, want, ulps, top_ulps):

@@ -397,18 +397,22 @@ def test_fused_expand_dw_tc_takes_odd_widths_and_views(cuda, k, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,ce,k,s", D0_EXPAND)
+@pytest.mark.parametrize("cin,ce,k,s", D0_EXPAND + [(640, 3840, 3, 1), (384, 2304, 5, 1)])
 def test_fused_expand_dw_planner_counts_the_kernels_shared_memory(cuda, cin, ce, k, s):
     """The tile planners' shared-memory model equals the source's count, for
-    both kernels at d0's block shapes, at the spatial sizes of d0's
-    stages at 1024x512 and at the tests' 20x40."""
-    for h, w in ((20, 40), (256, 512), (128, 256), (64, 128), (32, 64), (16, 32)):
+    both kernels and both bf16 layouts at d0's block shapes and B7's
+    widest, at the spatial sizes of d0's stages at 1024x512, of B7's
+    deepest at 1536x768 and at the tests' 20x40."""
+    for h, w in ((20, 40), (256, 512), (128, 256), (64, 128), (32, 64), (16, 32), (24, 48)):
         ho, wo = -(-h // s), -(-w // s)
-        th, tw = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k)
-        assert (fused_mbconv.kernel_smem_bytes(True, cin, th, tw, s, k)
-                == fused_mbconv.tc_smem_bytes(cin, th, tw, s, k))
+        for vec in (False, True):
+            th, tw, streamed = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k, vec)
+            assert (fused_mbconv.kernel_smem_bytes(True, cin, th, tw, s, k, streamed)
+                    == fused_mbconv.tc_smem_bytes(cin, th, tw, s, k, streamed))
+            assert (fused_mbconv.kernel_smem_bytes(True, cin, th, tw, s, k, not streamed)
+                    == fused_mbconv.tc_smem_bytes(cin, th, tw, s, k, not streamed))
         th, tw = fused_mbconv.tile_shape(ho, wo, cin, s, k)
-        assert (fused_mbconv.kernel_smem_bytes(False, cin, th, tw, s, k)
+        assert (fused_mbconv.kernel_smem_bytes(False, cin, th, tw, s, k, False)
                 == fused_mbconv.smem_bytes(cin, th, tw, s, k))
 
 
@@ -1254,12 +1258,16 @@ B7_EXPAND = sorted({(cin, a.input_filters * a.expand_ratio, a.kernel_size, a.str
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("cin,ce,k,s,h,w", B7_EXPAND)
-def test_fused_expand_dw_tc_matches_plain_at_b7_blocks(cuda, cin, ce, k, s, h, w):
+def test_fused_expand_dw_tc_matches_plain_at_b7_blocks(cuda, cin, ce, k, s, h, w, masked):
     """The bf16 kernel at every expanding block shape of B7 at its d7x
-    size (K up to 640, Ce up to 3840), batch 2, with the tolerance of
-    ``test_fused_expand_dw_tc_matches_plain_at_d0_blocks``."""
+    size (K up to 640, Ce up to 3840), batch 2, with and without masks, in
+    the layout the planner takes (streamed: the 16-byte copies), with
+    the tolerance of ``test_fused_expand_dw_tc_matches_plain_at_d0_blocks``."""
     x, we, b0, m1, wd, b1, m2 = expand_operands(cin, 2, cin, ce, h, w, k, cuda, torch.bfloat16)
+    if not masked:
+        m1 = m2 = None
     want = fused_mbconv.fused_expand_dw_plain(x, we, b0, m1, wd, b1, m2, s, k)
     before = fused_mbconv.launches
     got = fused_mbconv.fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, s, k, "swish",
@@ -1295,3 +1303,43 @@ def test_d7x_serve_launches_4_51_1_from_a_trace(cuda):
     assert driver.graph_stats == dict(captures=1, replays=2, eager=1)
     assert launches.counts == (4, 51, 1) and launches.fast == 4
     assert launches.sepconv == 152
+
+
+def two_bytes_off(t):
+    """A copy of ``t`` 2 bytes off an aligned address, which the 16-byte
+    copies cannot take."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,ce,k,s,h,w", [(224, 1344, 5, 1, 48, 96), (640, 3840, 3, 1, 24, 48)])
+def test_streamed_layout_equals_the_resident_one_bit_for_bit(cuda, cin, ce, k, s, h, w):
+    """Both layouts accumulate the same K-chunks, hi then lo, in the same
+    order. The resident one runs where the loads are plain (here: the
+    split weights 2 bytes off an aligned address). At its tile the
+    streamed layout gives the same y and SE sums bit for bit; at the
+    planner's streamed tile the same y, and SE sums regrouped by tile,
+    equal to f32 rounding. A plan of the other layout is refused."""
+    x, we, b0, m1, wd, b1, m2 = expand_operands(7, 2, cin, ce, h, w, k, cuda, torch.bfloat16)
+    split = fused_mbconv.split_weights(we)
+    plain_loads = tuple(two_bytes_off(t) for t in split)
+    args = (x, we, b0, m1, wd, b1, m2, s, k, "swish")
+    ho, wo = -(-h // s), -(-w // s)
+    resident = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k, vec=False)
+    planned = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k)
+    assert not resident.streamed and planned.streamed and resident[:2] != planned[:2]
+    want = fused_mbconv.fused_expand_dw_cuda(*args, plain_loads)
+    same_tile = fused_mbconv._launch(*args, split, resident._replace(streamed=True))
+    got = fused_mbconv.fused_expand_dw_cuda(*args, split)
+    assert torch.equal(same_tile[0], want[0]) and torch.equal(same_tile[1], want[1])
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                               atol=1e-6 * want[1].abs().max().item())
+    with pytest.raises(ValueError, match="16-byte copies"):
+        fused_mbconv._launch(*args, plain_loads, planned)
+    with pytest.raises(ValueError, match="16-byte copies"):
+        fused_mbconv._launch(*args, split, resident)

@@ -185,23 +185,125 @@ D0_BLOCKS = [(a.input_filters, a.input_filters * a.expand_ratio, h, w, a.kernel_
               a.strides[0])
              for a, h, w in torch_effnet.block_input_sizes(
                  torch_effnet.backbone_spec("efficientnet-b0"), 256, 512)[1:]]
+# the distinct expand blocks of B7 at d7x's 1536x768 (expand ratio above 1)
+B7_BLOCKS = sorted({(a.input_filters, a.input_filters * a.expand_ratio, h, w, a.kernel_size,
+                     a.strides[0])
+                    for a, h, w in torch_effnet.block_input_sizes(
+                        torch_effnet.backbone_spec("efficientnet-b7"), 384, 768)
+                    if a.expand_ratio > 1})
 # the shapes of the card tests (tests/test_torch_cuda.py) beside d0's blocks
-# at 1024x512
+# at 1024x512 and B7's at 1536x768
 TC_PLAN_CASES = D0_BLOCKS + [(24, 40, 17, 70, 3, 1), (32, 96, 24, 40, 5, 2),
-                             (16, 96, 20, 24, 3, 2), (192, 1152, 9, 13, 5, 1)]
+                             (16, 96, 20, 24, 3, 2), (192, 1152, 9, 13, 5, 1)] + B7_BLOCKS
+# the tiles d0's blocks took before the weights were streamed, in block order
+D0_TILES = [(4, 64), (8, 64), (4, 32), (8, 64), (4, 64), (8, 64), (8, 64), (8, 64), (8, 64),
+            (8, 64), (4, 32), (16, 32), (16, 32), (16, 32), (16, 32)]
+
+
+def plan_for(cin, h, w, k, s, vec=True):
+    return fused_mbconv.tc_tile_shape(-(-h // s), -(-w // s), cin, s, k, vec)
+
+
+@pytest.mark.parametrize("vec", [False, True])
+@pytest.mark.parametrize("cin,ce,h,w,k,s", TC_PLAN_CASES)
+def test_tc_tile_shape_fits_shared_memory(cin, ce, h, w, k, s, vec):
+    """The bf16 kernel's tile planner, in either layout (streamed with the
+    16-byte copies, ``vec``): a tile inside the output whose block fits the
+    budget, so two blocks share an SM (228 KB, less 1 KB reserved and the
+    static b0 and m1 of each)."""
+    ho, wo = -(-h // s), -(-w // s)
+    th, tw, streamed = plan_for(cin, h, w, k, s, vec)
+    assert streamed == vec
+    assert 1 <= th <= ho and 1 <= tw <= min(wo, 64)
+    smem = fused_mbconv.tc_smem_bytes(cin, th, tw, s, k, streamed)
+    assert smem <= fused_mbconv.TC_SMEM_BUDGET
+    assert 2 * (smem + 8 * fused_mbconv.TC_CHANNEL_TILE + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("cin,ce,h,w,k,s", TC_PLAN_CASES)
-def test_tc_tile_shape_fits_shared_memory(cin, ce, h, w, k, s):
-    """The bf16 kernel's tile planner: a tile inside the output whose block
-    fits the budget, so two blocks share an SM (228 KB, less 1 KB reserved
-    and the static b0 and m1 of each)."""
+def test_tc_plan_stages_no_more_streamed_from_cin_64(cin, ce, h, w, k, s):
+    """From Cin = 64 on, the ring's 16 channels of We^T a stage take no
+    more room than the resident [32, Cin + 8] pair, so the streamed plan
+    stages no more pixels per output than the resident one would."""
+    streamed, resident = plan_for(cin, h, w, k, s), plan_for(cin, h, w, k, s, vec=False)
+    key = [fused_mbconv.tc_staged_per_output(p.th, p.tw, s, k) for p in (streamed, resident)]
+    assert cin < 64 or key[0] <= key[1]
+
+
+@pytest.mark.parametrize("block", range(15))
+def test_d0_blocks_plan_resident_with_their_tiles(block):
+    """At d0's 1024x512 every expand block plans the tile it had when the
+    weights stayed resident, without 16-byte copies (resident) and with
+    them (streamed)."""
+    cin, ce, h, w, k, s = D0_BLOCKS[block]
+    assert plan_for(cin, h, w, k, s) == (*D0_TILES[block], True)
+    assert plan_for(cin, h, w, k, s, vec=False) == (*D0_TILES[block], False)
+
+
+def test_a_plan_of_the_other_layout_is_refused():
+    """A launch takes the layout its operands' loads take: a resident plan
+    for operands the 16-byte copies take, or a streamed one for operands
+    they do not (the weights 2 bytes off an aligned address), is refused
+    before the kernel is built or launched."""
+    t = {n: torch.from_numpy(v) for n, v in operands(5, 3).items()}
+    x = torch.zeros(2, 16, 8, 16, dtype=torch.bfloat16)
+    we = torch.from_numpy(np.asarray(np.random.RandomState(5).normal(0, 0.25, (16, CE)),
+                                     np.float32))
+    split = fused_mbconv.split_weights(we)
+    off = tuple(torch.empty(v.numel() + 1, dtype=v.dtype)[1:].view(v.shape).copy_(v)
+                for v in split)
+    assert all(v.data_ptr() % 16 for v in off) and x.data_ptr() % 16 == 0
+    args = (x, we, t["b0"], None, t["wd"], t["b1"], None, 1, 3, "swish")
+    streamed, resident = fused_mbconv.Plan(8, 16, True), fused_mbconv.Plan(8, 16, False)
+    with pytest.raises(ValueError, match="resident plan for operands that take"):
+        fused_mbconv._launch(*args, split, resident)
+    with pytest.raises(ValueError, match="streamed plan for operands that do not take"):
+        fused_mbconv._launch(*args, off, streamed)
+
+
+def computed_per_output(cin, h, w, k, s, plan):
+    """The pixels the expand computes per output pixel of the launch: every
+    tile's staged window in whole 256-pixel passes, over the real outputs
+    (ragged edge tiles included)."""
     ho, wo = -(-h // s), -(-w // s)
-    th, tw = fused_mbconv.tc_tile_shape(ho, wo, cin, s, k)
-    assert 1 <= th <= ho and 1 <= tw <= min(wo, 64)
-    smem = fused_mbconv.tc_smem_bytes(cin, th, tw, s, k)
-    assert smem <= fused_mbconv.TC_SMEM_BUDGET
-    assert 2 * (smem + 8 * fused_mbconv.TC_CHANNEL_TILE + 1024) <= 228 * 1024
+    th, tw, _ = plan
+    staged = ((th - 1) * s + k) * (((tw - 1) * s + k + 14) // 8 * 8)
+    passes = -(-staged // fused_mbconv.TC_PIXELS)
+    return -(-ho // th) * -(-wo // tw) * passes * fused_mbconv.TC_PIXELS / (ho * wo)
+
+
+def test_b7_widest_block_streams_with_little_halo():
+    """B7's Cin = 640 blocks (24x48, k3 s1): the resident We^T leaves z room
+    for a 1x8 tile only (32 computed pixels an output); streamed, a 16x48
+    tile computes at most 2.5."""
+    (case,) = [c for c in B7_BLOCKS if c[0] == 640]
+    cin, ce, h, w, k, s = case
+    assert (h, w, k, s) == (24, 48, 3, 1)
+    assert plan_for(cin, h, w, k, s, vec=False) == (1, 8, False)
+    plan = plan_for(cin, h, w, k, s)
+    assert plan == (16, 48, True)
+    assert computed_per_output(cin, h, w, k, s, plan) <= 2.5
+    assert computed_per_output(cin, h, w, k, s, (1, 8, False)) == 32
+
+
+def test_b7_streams_27_of_its_51_expand_launches():
+    """B7's expand blocks at 1536x768: 51 launches, every one streamed.
+    Streaming changes the tiles of 27, at Cin 80 (stride 2), 224, 384 and
+    640, and from Cin 224 on those compute fewer pixels an output than the
+    resident weights left room for; the other 24 keep their tiles. (At Cin
+    80, stride 2, the planner's key, blind to a ragged last column of
+    tiles, takes 4x64 over 4x32 though it computes more.)"""
+    blocks = [(a.input_filters, h, w, a.kernel_size, a.strides[0])
+              for a, h, w in torch_effnet.block_input_sizes(
+                  torch_effnet.backbone_spec("efficientnet-b7"), 384, 768)
+              if a.expand_ratio > 1]
+    wider = [b for b in blocks if plan_for(*b)[:2] != plan_for(*b, vec=False)[:2]]
+    assert len(blocks) == 51 and all(plan_for(*b).streamed for b in blocks)
+    assert len(wider) == 27
+    assert {(b[0], b[4]) for b in wider} == {(80, 2), (224, 1), (224, 2), (384, 1), (640, 1)}
+    for b in (b for b in wider if b[0] >= 224):
+        assert (computed_per_output(*b, plan_for(*b))
+                < computed_per_output(*b, plan_for(*b, vec=False)))
 
 
 def test_d0_has_fifteen_expand_blocks():

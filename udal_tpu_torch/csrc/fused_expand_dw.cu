@@ -33,7 +33,17 @@
 // products. We is f32 in the model: the host splits it into hi = bf16(We)
 // and lo = bf16(We - hi), and every product runs twice, hi and lo, into
 // the same f32 accumulators, so the expand keeps We to about 2^-16 and
-// the plain version's tolerances hold. The accumulators take b0, the
+// the plain version's tolerances hold. With 16-byte copies (W and Cin
+// multiples of 8, the pointers aligned: every launch of the models) the
+// weights ride the ring too (expand_dw_tc_kernel_streamed): each stage
+// holds x's 16 channels and the same 16 channels of We^T's block rows, hi
+// and lo, loaded in the same cp.async group, so z takes the whole block
+// budget past the ring. Otherwise (plain loads, expand_dw_tc_kernel)
+// We^T's block rows stay resident for the whole of Cin, 2 * 32 * (Cin + 8)
+// values, which leave z less room as Cin grows (at Cin = 640 a 1x8 output
+// tile, whose 72 staged pixels fill one 256-pixel pass for 8 outputs).
+// Both run the same K-chunks in the same order into the same
+// accumulators, so y is the same bit for bit. The accumulators take b0, the
 // activation and m1, round once to bf16 and go to z; the depthwise then
 // forms 4 or 8 outputs down a column per lane (depthwise_cols_epilogue).
 // z's swish, rounded to bf16 next, is one tanh.approx (activate_bf16); the
@@ -51,7 +61,17 @@
 // operation and 1.6 G on y at two, put a floor of about 1.4 ms beside it.
 // On an H100 SXM at 700 W the 15 blocks take about 17 ms a serve: the
 // swish and stencil epilogues and the barriers between a block's two
-// phases, at 16 warps an SM, set it.
+// phases, at 16 warps an SM, set it. Streaming the weights keeps d0's
+// tiles and takes 1-8% off each of its blocks' time. At d7x's 1536x768
+// (B7, B = 8, 51 launches, a bound of 2.29 ms) resident weights would
+// leave tiles at Cin = 224-640 that recompute 3-32 times the expand and
+// reload We^T and x from L2 for each small block: 128 ms a serve, 74 of
+// them in the three Cin = 640 launches (1x8 tiles). Streamed, those take
+// tiles of 8x64 to 16x48, at most 2.2 computed pixels an output, and a
+// Cin = 640 launch 1.7 ms. The k5 launches stay at 2-3% of their bound,
+// and a fourth ring stage gains only 3% there, so the ring's depth is not
+// what limits them; the planner's tiles are not the fastest at every
+// shape (8x48 beats its 16x32 at Cin = 384, k5).
 #include "depthwise_tile.cuh"
 #include "mma_tile.cuh"
 
@@ -183,32 +203,43 @@ __host__ __device__ inline int tc_plane(int ih, int iwx) {
 }
 __host__ __device__ inline int tc_cinp(int cin) { return (cin + kKC - 1) / kKC * kKC; }
 
-// hi and lo, the ring and z
-size_t tc_smem_bytes(int cin, int ih, int iw) {
-  return (2 * static_cast<size_t>(kTcCT) * (tc_cinp(cin) + 8) +
-          static_cast<size_t>(kStages) * kKC * kLdb +
+// A ring stage: x's kKC input channels of kNP staged pixels, [kKC][kLdb];
+// with streamed weights We^T's same kKC channels for the block's kTcCT
+// expanded ones follow, hi then lo, [2][kTcCT][kLdw]. Rows of kLdw values
+// (48 bytes) put an ldmatrix's eight rows in distinct bank groups.
+constexpr int kLdw = kKC + 8;
+__host__ __device__ constexpr int tc_stage(bool streamed) {
+  return kKC * kLdb + (streamed ? 2 * kTcCT * kLdw : 0);
+}
+
+// resident: We^T hi and lo for the whole of Cin, then the ring and z;
+// streamed: the ring (which carries We^T a K-chunk a stage) and z
+size_t tc_smem_bytes(bool streamed, int cin, int ih, int iw) {
+  return ((streamed ? 0 : 2 * static_cast<size_t>(kTcCT) * (tc_cinp(cin) + 8)) +
+          static_cast<size_t>(kStages) * tc_stage(streamed) +
           static_cast<size_t>(kTcCT) * tc_plane(ih, tc_width(iw))) *
          sizeof(bf16);
 }
 
-// kVec: W and Cin multiples of 8 and x, we_hi, we_lo 16-byte aligned
-// (16-byte asynchronous copies); plain loads otherwise.
+// The bf16 kernel's body. kVec: W and Cin multiples of 8 and x, we_hi,
+// we_lo 16-byte aligned: 16-byte asynchronous copies, and We^T rides the
+// ring with x, a K-chunk a stage. Otherwise plain loads, and We^T stays in
+// shared memory for the whole of Cin.
 template <int K, int S, bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-expand_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we_hi,
-                    const bf16* __restrict__ we_lo, const float* __restrict__ b0,
-                    const float* __restrict__ m1, const float* __restrict__ wd,
-                    const float* __restrict__ b1, const float* __restrict__ m2,
-                    bf16* __restrict__ y, float* __restrict__ partial, int N, int Cin, int Ce,
-                    int H, int W, int Ho, int Wo, int pad_t, int pad_l, int th, int tw, int act) {
+__device__ __forceinline__ void expand_dw_tc_body(
+    unsigned char* smem, const bf16* __restrict__ x, const bf16* __restrict__ we_hi,
+    const bf16* __restrict__ we_lo, const float* __restrict__ b0, const float* __restrict__ m1,
+    const float* __restrict__ wd, const float* __restrict__ b1, const float* __restrict__ m2,
+    bf16* __restrict__ y, float* __restrict__ partial, int N, int Cin, int Ce, int H, int W,
+    int Ho, int Wo, int pad_t, int pad_l, int th, int tw, int act) {
   constexpr int kMI = kTcCT / 16, kNJ = 4;
-  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kStage = tc_stage(kVec);
   const int cinp = tc_cinp(Cin);
-  const int lda = cinp + 8;
-  bf16* s_hi = reinterpret_cast<bf16*>(smem);  // [kTcCT][lda]: We^T, hi and lo
-  bf16* s_lo = s_hi + kTcCT * lda;
-  bf16* s_ring = s_lo + kTcCT * lda;  // [kStages][kKC][kLdb]
-  bf16* s_z = s_ring + kStages * kKC * kLdb;  // [kTcCT][plane]
+  // the row stride of We^T's hi and lo; lo = hi + kTcCT * lda in both layouts
+  const int lda = kVec ? kLdw : cinp + 8;
+  bf16* s_we = reinterpret_cast<bf16*>(smem);  // resident: We^T, hi and lo [2][kTcCT][lda]
+  bf16* s_ring = s_we + (kVec ? 0 : 2 * kTcCT * lda);  // [kStages][kStage]
+  bf16* s_z = s_ring + kStages * kStage;  // [kTcCT][plane]
   __shared__ float s_b0[kTcCT];
   __shared__ float s_m1[kTcCT];
 
@@ -224,26 +255,16 @@ expand_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we_hi,
   const int gwa = gw0 & ~7;  // rounded down (also below zero)
   const int off = gw0 - gwa;  // z column q is staged column off + q
 
-  // the block's rows of We^T, zeros past Ce and Cin
-  if constexpr (kVec) {
-    for (int i = threadIdx.x; i < kTcCT * (cinp / 8); i += kThreads) {
-      const int m = i / (cinp / 8);
-      const int k = (i - m * (cinp / 8)) * 8;
-      const int e = pos.c0 + m;
-      const bool valid = e < Ce && k < Cin;
-      const size_t g = static_cast<size_t>(e) * Cin + k;
-      mma::cp_async16(s_hi + m * lda + k, valid ? we_hi + g : we_hi, valid);
-      mma::cp_async16(s_lo + m * lda + k, valid ? we_lo + g : we_lo, valid);
-    }
-  } else {
+  // resident: the block's rows of We^T, zeros past Ce and Cin
+  if constexpr (!kVec) {
     for (int i = threadIdx.x; i < kTcCT * cinp; i += kThreads) {
       const int m = i / cinp;
       const int k = i - m * cinp;
       const int e = pos.c0 + m;
       const bool valid = e < Ce && k < Cin;
       const size_t g = static_cast<size_t>(e) * Cin + k;
-      s_hi[m * lda + k] = valid ? we_hi[g] : __float2bfloat16(0.f);
-      s_lo[m * lda + k] = valid ? we_lo[g] : __float2bfloat16(0.f);
+      s_we[m * lda + k] = valid ? we_hi[g] : __float2bfloat16(0.f);
+      s_we[(kTcCT + m) * lda + k] = valid ? we_lo[g] : __float2bfloat16(0.f);
     }
   }
   if (threadIdx.x < kTcCT) {
@@ -256,12 +277,23 @@ expand_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we_hi,
   const bf16* xn = x + static_cast<size_t>(pos.n) * Cin * hw;
   const int chunks = cinp / kKC;
   const int total = udal::ceil_div(npix, kNP) * chunks;
-  // stage j: input channels [kc * 16, +16) of staged pixels [pass * 256, +256)
+  // stage j: input channels [kc * 16, +16) of staged pixels [pass * 256, +256),
+  // and with 16-byte copies We^T's same 16 channels, zeros past Ce and Cin
   auto load = [&](int j) {
     const int pass = j / chunks;
     const int c0 = (j - pass * chunks) * kKC;
-    bf16* dst = s_ring + (j % kStages) * kKC * kLdb;
+    bf16* dst = s_ring + (j % kStages) * kStage;
     if constexpr (kVec) {
+      if (threadIdx.x < 2 * kTcCT * (kKC / 8)) {
+        const int lo = threadIdx.x / (kTcCT * (kKC / 8));
+        const int m = threadIdx.x / (kKC / 8) % kTcCT;
+        const int k = threadIdx.x % (kKC / 8) * 8;
+        const int e = pos.c0 + m;
+        const bool valid = e < Ce && c0 + k < Cin;
+        const bf16* src = lo ? we_lo : we_hi;
+        mma::cp_async16(dst + kKC * kLdb + (lo * kTcCT + m) * kLdw + k,
+                        valid ? src + static_cast<size_t>(e) * Cin + c0 + k : src, valid);
+      }
       for (int i = threadIdx.x; i < kKC * (kNP / 8); i += kThreads) {
         const int kk = i / (kNP / 8);
         const int g = (i - kk * (kNP / 8)) * 8;
@@ -295,7 +327,7 @@ expand_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we_hi,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total) load(s);
-    mma::cp_async_commit();  // the weights ride in the first group
+    mma::cp_async_commit();
   }
 
   const int warp = threadIdx.x / 32;
@@ -310,10 +342,12 @@ expand_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we_hi,
 
     const int pass = j / chunks;
     const int kc = j - pass * chunks;
+    const bf16* stage = s_ring + (j % kStages) * kStage;
+    const bf16* a_hi = kVec ? stage + kKC * kLdb : s_we + kc * kKC;
     uint32_t b[kNJ][2];
-    mma::load_b(b, s_ring + (j % kStages) * kKC * kLdb + warp * 32, kLdb, lane);
-    mma::mma_rows(acc, s_hi + kc * kKC, lda, b, lane);
-    mma::mma_rows(acc, s_lo + kc * kKC, lda, b, lane);
+    mma::load_b(b, stage + warp * 32, kLdb, lane);
+    mma::mma_rows(acc, a_hi, lda, b, lane);
+    mma::mma_rows(acc, a_hi + kTcCT * lda, lda, b, lane);
     if (kc != chunks - 1) continue;
 
     // z = act(acc + b0) * m1 for the pass's pixels, zero outside the image
@@ -375,20 +409,54 @@ expand_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we_hi,
   });
 }
 
+#define UDAL_TC_PARAMS                                                                     \
+  const bf16 *__restrict__ x, const bf16 *__restrict__ we_hi, const bf16 *__restrict__ we_lo, \
+      const float *__restrict__ b0, const float *__restrict__ m1,                            \
+      const float *__restrict__ wd, const float *__restrict__ b1,                            \
+      const float *__restrict__ m2, bf16 *__restrict__ y, float *__restrict__ partial, int N, \
+      int Cin, int Ce, int H, int W, int Ho, int Wo, int pad_t, int pad_l, int th, int tw,   \
+      int act
+#define UDAL_TC_ARGS                                                                       \
+  x, we_hi, we_lo, b0, m1, wd, b1, m2, y, partial, N, Cin, Ce, H, W, Ho, Wo, pad_t, pad_l, th, \
+      tw, act
+
+// plain loads, We^T resident
+template <int K, int S>
+__global__ void __launch_bounds__(kThreads, 2) expand_dw_tc_kernel(UDAL_TC_PARAMS) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  expand_dw_tc_body<K, S, false>(smem, UDAL_TC_ARGS);
+}
+
+// 16-byte copies, We^T streamed: an entry of its own, so a trace tells the
+// two apart
+template <int K, int S>
+__global__ void __launch_bounds__(kThreads, 2) expand_dw_tc_kernel_streamed(UDAL_TC_PARAMS) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  expand_dw_tc_body<K, S, true>(smem, UDAL_TC_ARGS);
+}
+#undef UDAL_TC_ARGS
+#undef UDAL_TC_PARAMS
+
 template <int K, int S, bool kVec>
 cudaError_t launch_tc(const void* x, const void* we_hi, const void* we_lo, const void* b0,
                       const void* m1, const void* wd, const void* b1, const void* m2, void* y,
                       void* partial, int n, int cin, int ce, int h, int w, int ho, int wo,
                       int pad_t, int pad_l, int th, int tw, int act, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(cin, (th - 1) * S + K, (tw - 1) * S + K);
+  const auto kernel = [] {
+    if constexpr (kVec) {
+      return expand_dw_tc_kernel_streamed<K, S>;
+    } else {
+      return expand_dw_tc_kernel<K, S>;
+    }
+  }();
+  const size_t smem = tc_smem_bytes(kVec, cin, (th - 1) * S + K, (tw - 1) * S + K);
   const long long blocks = static_cast<long long>(n) * udal::ceil_div(ho, th) *
                            udal::ceil_div(wo, tw) * udal::ceil_div(ce, kTcCT);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(expand_dw_tc_kernel<K, S, kVec>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  expand_dw_tc_kernel<K, S, kVec><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(we_hi),
       static_cast<const bf16*>(we_lo), static_cast<const float*>(b0),
       static_cast<const float*>(m1), static_cast<const float*>(wd),
@@ -400,12 +468,15 @@ cudaError_t launch_tc(const void* x, const void* we_hi, const void* we_lo, const
 }  // namespace
 
 // The dynamic shared memory of a block of the f32 (bf16 == 0) or bf16
-// kernel at an output tile of th x tw: what the host's tile planner
-// (ops/fused_mbconv.py) models, checked against this before a launch.
-extern "C" long long udal_fused_expand_dw_smem(int bf16, int cin, int th, int tw, int k,
-                                               int stride) {
+// kernel, the latter with We^T resident (streamed == 0, plain loads) or
+// streamed (16-byte copies), at an output tile of th x tw: what the host's
+// tile planner (ops/fused_mbconv.py) models, checked against this before a
+// launch.
+extern "C" long long udal_fused_expand_dw_smem(int bf16, int streamed, int cin, int th, int tw,
+                                               int k, int stride) {
   const int ih = (th - 1) * stride + k, iw = (tw - 1) * stride + k;
-  return static_cast<long long>(bf16 ? tc_smem_bytes(cin, ih, iw) : f32_smem_bytes(cin, ih, iw));
+  return static_cast<long long>(bf16 ? tc_smem_bytes(streamed != 0, cin, ih, iw)
+                                     : f32_smem_bytes(cin, ih, iw));
 }
 
 // x [n, cin, h, w] contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1); b0
@@ -413,7 +484,8 @@ extern "C" long long udal_fused_expand_dw_smem(int bf16, int cin, int th, int tw
 // ho, wo] in x's type; se_sum [n, ce] f32; `partial` f32 scratch of
 // ceil(ho/th) * ceil(wo/tw) * n * ce values. f32 takes we [cin, ce] f32;
 // bf16 takes we_hi, we_lo [ce, cin] bf16 (We^T split in two) and vec (w and
-// cin multiples of 8, x, we_hi, we_lo 16-byte aligned). k in {3, 5},
+// cin multiples of 8, x, we_hi, we_lo 16-byte aligned: 16-byte copies, We^T
+// streamed through the ring with x). k in {3, 5},
 // stride in {1, 2}; (pad_t, pad_l) are TF SAME's leading pads. Returns the
 // CUDA error code of the launches (0 on success).
 extern "C" int udal_fused_expand_dw(const void* x, const void* we, const void* we_hi,

@@ -17,7 +17,10 @@ buffer, and in the plain version alike.
 In bf16 the kernel runs the expand on tensor cores from a split of the
 folded f32 weights, ``split_weights``: hi = bf16(We), lo = bf16(We - hi),
 both multiplied into one f32 sum, so We keeps about 16 bits (its products
-with bf16 x are exact in f32). In f32 the expand runs on CUDA cores.
+with bf16 x are exact in f32). Where the operands take 16-byte copies (every
+launch of the models) the weights ride the kernel's load ring with x, a
+16-channel chunk a stage; otherwise they stay in shared memory for the
+whole of Cin. In f32 the expand runs on CUDA cores.
 
 Two departures from the TPU kernel: the layout is the port's NCHW (the
 batch-in-lanes [H, W, C, N] was a TPU layout), and the stride-2 windows
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -103,34 +106,53 @@ def split_weights(we: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (wt - hi.float()).to(torch.bfloat16)
 
 
-def tc_smem_bytes(cin: int, th: int, tw: int, stride: int, ksize: int) -> int:
+class Plan(NamedTuple):
+    """A launch's output tile and, in bf16, its layout."""
+    th: int
+    tw: int
+    streamed: bool   # bf16 with 16-byte copies: We^T rides the ring with x
+
+
+def tc_smem_bytes(cin: int, th: int, tw: int, stride: int, ksize: int,
+                  streamed: bool) -> int:
     """Dynamic shared memory of the bf16 kernel (``tc_smem_bytes`` in the
-    source): We^T hi and lo [32, cin padded to 16 + 8], the x ring
-    [stages, 16, 256 + 8] and z [32, plane], bf16."""
+    source). Resident (plain loads): We^T hi and lo [32, cin padded to 16 +
+    8], the x ring [stages, 16, 256 + 8] and z [32, plane]. Streamed (16-byte
+    copies): each ring stage also holds its 16 channels of We^T hi and lo [2,
+    32, 16 + 8], and nothing of We^T stays; bf16 throughout."""
     ih, iw = (th - 1) * stride + ksize, (tw - 1) * stride + ksize
     iwx = (iw + 14) // 8 * 8                 # staged columns: whole 8-column groups
     plane = ih * iwx + (8 if ih * iwx % 16 == 0 else 0)
-    cinp = -(-cin // TC_K_CHUNK) * TC_K_CHUNK
-    ct = TC_CHANNEL_TILE
-    return 2 * (2 * ct * (cinp + 8) + TC_STAGES * TC_K_CHUNK * (TC_PIXELS + 8) + ct * plane)
+    ct, kc = TC_CHANNEL_TILE, TC_K_CHUNK
+    stage = kc * (TC_PIXELS + 8) + (2 * ct * (kc + 8) if streamed else 0)
+    weights = 0 if streamed else 2 * ct * (-(-cin // kc) * kc + 8)
+    return 2 * (weights + TC_STAGES * stage + ct * plane)
 
 
-def tc_tile_shape(ho: int, wo: int, cin: int, stride: int, ksize: int) -> Tuple[int, int]:
-    """Output tile (rows, cols) of the bf16 kernel: of the tiles with rows a
-    power of two (or all of ``ho``) and up to 64 columns whose block fits
-    ``TC_SMEM_BUDGET``, the one that stages the fewest input pixels per
-    output pixel (the halo the expand recomputes), then the largest."""
+def tc_staged_per_output(th: int, tw: int, stride: int, ksize: int) -> float:
+    """Input pixels the bf16 kernel stages (the expand computes) per output
+    pixel of a th x tw tile: its halo, widened to whole 8-column groups."""
+    return ((th - 1) * stride + ksize) * (((tw - 1) * stride + ksize + 14) // 8 * 8) / (th * tw)
+
+
+def tc_tile_shape(ho: int, wo: int, cin: int, stride: int, ksize: int,
+                  vec: bool = True) -> Plan:
+    """Tile of the bf16 kernel in the layout its loads take (streamed with
+    the 16-byte copies, ``vec``; resident with plain loads): of the tiles
+    with rows a power of two (or all of ``ho``) and up to 64 columns whose
+    block fits ``TC_SMEM_BUDGET``, the one that stages the fewest input
+    pixels per output pixel (the halo the expand recomputes), then the
+    largest."""
     rows = sorted({min(ho, 1 << i) for i in range(12)})
     cols = sorted({min(wo, c) for c in (8, 16, 32, 64)})
     best = None
     for th in rows:
         for tw in cols:
-            if tc_smem_bytes(cin, th, tw, stride, ksize) > TC_SMEM_BUDGET:
+            if tc_smem_bytes(cin, th, tw, stride, ksize, vec) > TC_SMEM_BUDGET:
                 continue
-            staged = ((th - 1) * stride + ksize) * (((tw - 1) * stride + ksize + 14) // 8 * 8)
-            key = (staged / (th * tw), -th * tw)
+            key = (tc_staged_per_output(th, tw, stride, ksize), -th * tw)
             if best is None or key < best[0]:
-                best = (key, (th, tw))
+                best = (key, Plan(th, tw, vec))
     if best is None:
         raise ValueError(f"the tensor-core expand + depthwise kernel cannot stage Cin={cin} "
                          f"input channels in {TC_SMEM_BUDGET} bytes of shared memory")
@@ -146,12 +168,13 @@ def _kernel():
 
 
 @functools.cache
-def kernel_smem_bytes(tc: bool, cin: int, th: int, tw: int, stride: int, ksize: int) -> int:
+def kernel_smem_bytes(tc: bool, cin: int, th: int, tw: int, stride: int, ksize: int,
+                      streamed: bool) -> int:
     """The source's count of a block's dynamic shared memory."""
     fn = load_library("fused_expand_dw").udal_fused_expand_dw_smem
-    fn.argtypes = [ctypes.c_int] * 6
+    fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_longlong
-    return fn(int(tc), cin, th, tw, ksize, stride)
+    return fn(int(tc), int(streamed), cin, th, tw, ksize, stride)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -174,7 +197,6 @@ def fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride: int, ksize: int,
                          we_split=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/fused_expand_dw.cu`` on CUDA tensors (checked). bf16
     needs ``we_split = split_weights(we)``."""
-    global launches
     _check(x, we, b0, m1, wd, b1, m2, stride, ksize, act)
     if x.device.type != "cuda":
         raise ValueError(f"the fused expand + depthwise kernel takes CUDA tensors, "
@@ -182,30 +204,51 @@ def fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride: int, ksize: int,
     n, cin, h, w = x.shape
     ce = we.shape[1]
     ho, wo = output_size(h, w, stride)
+    if x.dtype != torch.bfloat16:
+        plan = Plan(*tile_shape(ho, wo, cin, stride, ksize), False)
+        return _launch(x, we, b0, m1, wd, b1, m2, stride, ksize, act, None, plan)
+    if we_split is None:
+        raise ValueError("the bf16 kernel takes the weights as we_split = split_weights(we)")
+    hi, lo = we_split
+    if hi.shape != (ce, cin) or lo.shape != (ce, cin) or hi.dtype != torch.bfloat16 \
+            or lo.dtype != torch.bfloat16 or not (hi.is_contiguous() and lo.is_contiguous()) \
+            or hi.device != x.device or lo.device != x.device:
+        raise ValueError(f"we_split must be two contiguous bfloat16 [{ce}, {cin}] tensors "
+                         f"on {x.device}")
+    plan = tc_tile_shape(ho, wo, cin, stride, ksize, _vectorised(x, hi, lo))
+    return _launch(x, we, b0, m1, wd, b1, m2, stride, ksize, act, we_split, plan)
+
+
+def _vectorised(x, hi, lo) -> bool:
+    """The bf16 kernel's 16-byte copies, and with them the streamed
+    weights: W and Cin multiples of 8, x, hi and lo 16-byte aligned."""
+    return (x.shape[3] % 8 == 0 and x.shape[1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, hi, lo)))
+
+
+def _launch(x, we, b0, m1, wd, b1, m2, stride, ksize, act, we_split,
+            plan: Plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch at ``plan`` of checked operands (bf16 with ``we_split``),
+    after the planner's shared-memory count is checked against the
+    source's. The plan's layout must be the one the operands' loads take."""
+    global launches
+    n, cin, h, w = x.shape
+    ce = we.shape[1]
+    ho, wo = output_size(h, w, stride)
     tc = x.dtype == torch.bfloat16
-    hi = lo = None
-    vec = 0
-    if tc:
-        if we_split is None:
-            raise ValueError("the bf16 kernel takes the weights as we_split = "
-                             "split_weights(we)")
-        hi, lo = we_split
-        if hi.shape != (ce, cin) or lo.shape != (ce, cin) or hi.dtype != torch.bfloat16 \
-                or lo.dtype != torch.bfloat16 or not (hi.is_contiguous() and lo.is_contiguous()) \
-                or hi.device != x.device or lo.device != x.device:
-            raise ValueError(f"we_split must be two contiguous bfloat16 [{ce}, {cin}] tensors "
-                             f"on {x.device}")
-        th, tw = tc_tile_shape(ho, wo, cin, stride, ksize)
-        vec = int(w % 8 == 0 and cin % 8 == 0
-                  and all(t.data_ptr() % 16 == 0 for t in (x, hi, lo)))
-        planned = tc_smem_bytes(cin, th, tw, stride, ksize)
-    else:
-        th, tw = tile_shape(ho, wo, cin, stride, ksize)
-        planned = smem_bytes(cin, th, tw, stride, ksize)
-    if kernel_smem_bytes(tc, cin, th, tw, stride, ksize) != planned:
+    hi, lo = we_split if tc else (None, None)
+    vec = tc and _vectorised(x, hi, lo)
+    th, tw, streamed = plan
+    if streamed != vec:
+        raise ValueError(f"a {'streamed' if streamed else 'resident'} plan for operands that "
+                         f"{'take' if vec else 'do not take'} the 16-byte copies")
+    planned = (tc_smem_bytes(cin, th, tw, stride, ksize, streamed) if tc
+               else smem_bytes(cin, th, tw, stride, ksize))
+    counted = kernel_smem_bytes(tc, cin, th, tw, stride, ksize, streamed)
+    if counted != planned:
         raise RuntimeError(f"the tile planner counts {planned} bytes of shared memory for a "
-                           f"{th}x{tw} tile at Cin={cin}, the kernel "
-                           f"{kernel_smem_bytes(tc, cin, th, tw, stride, ksize)}")
+                           f"{th}x{tw} tile at Cin={cin} (streamed={streamed}), the kernel "
+                           f"{counted}")
     tiles = -(-ho // th) * -(-wo // tw)
     y = torch.empty((n, ce, ho, wo), dtype=x.dtype, device=x.device)
     partial = torch.empty((tiles, n, ce), dtype=torch.float32, device=x.device)
@@ -215,7 +258,7 @@ def fused_expand_dw_cuda(x, we, b0, m1, wd, b1, m2, stride: int, ksize: int,
                         _ptr(m1), wd.data_ptr(), b1.data_ptr(), _ptr(m2), y.data_ptr(),
                         partial.data_ptr(), se_sum.data_ptr(), int(tc), n, cin, ce, h, w,
                         ksize, stride, ho, wo, same_pads(h, ksize, stride)[0],
-                        same_pads(w, ksize, stride)[0], th, tw, vec, ACTS[act],
+                        same_pads(w, ksize, stride)[0], th, tw, int(vec), ACTS[act],
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused expand + depthwise kernel launch failed with CUDA error {err}")

@@ -58,10 +58,11 @@ MAX_SPANS = 65536
 MARKER = "udal:"
 # the port's kernels by the names a trace of the card gives them, for each
 # wrapper's launch counter: the fused depthwise (fast path, general path),
-# the fused expand + depthwise (bf16, f32), soft-NMS, the fused separable
-# conv
+# the fused expand + depthwise (bf16 resident and streamed, f32), soft-NMS,
+# the fused separable conv
 KERNELS = {"fused_dw": ("fused_dw_rows_kernel", "fused_dw_kernel"),
-           "fused_expand_dw": ("expand_dw_tc_kernel", "fused_expand_dw_kernel"),
+           "fused_expand_dw": ("expand_dw_tc_kernel", "expand_dw_tc_kernel_streamed",
+                               "fused_expand_dw_kernel"),
            "soft_nms": ("soft_nms_kernel",),
            "fused_sepconv": ("fused_sepconv_tc_kernel",)}
 
