@@ -1124,6 +1124,41 @@ def test_replayed_serves_equal_eager_ones_bit_for_bit(cuda, forward):
 
 
 @pytest.mark.cuda
+def test_the_five_member_bdd_ensemble_replays_its_eager_serve_bit_for_bit(cuda):
+    """The benchmark's ``bdd_ens5_d0`` (five d0 members, 10 BDD classes,
+    1024x512, bf16) at batch 8 with flax-style random members: eager,
+    capture, two replays; each call launches 5 / 75 / 1 of the port's
+    kernels (every fused depthwise on its fast path) and 320 fused
+    separable convs, 64 a member, counted in a trace of the card, and each
+    packed tuple equals a twin driver's eager forward bit for bit."""
+    import json
+
+    from udal_tpu_torch.apps.serving import ServingDriver
+    from udal_tpu_torch.config import get_detection_config
+    from udal_tpu_torch.models.ensemble import init_ensemble
+
+    spec = json.loads((BENCH_CONFIGS / "bdd_ens5_d0.json").read_text())
+    cfg = get_detection_config(spec["model_name"])
+    cfg.override(spec["overrides"], allow_new_keys=True)
+    n, b = spec["members"], 8
+    stacked = init_ensemble(cfg, n, seed=7)[1]
+    graphs, eager = (ServingDriver(cfg, stacked, b, device=cuda, ensemble=True)
+                     for _ in range(2))
+    rng = np.random.RandomState(9)
+    for i in range(4):
+        images = rng.uniform(-2, 2, (b, 512, 1024, 3)).astype(np.float32)
+        scales = np.full((b,), 1.0 + i, np.float32)
+        with profiling.KernelLaunches() as launches:
+            got = graphs.serve_preprocessed(images, scales)
+        assert launches.counts == (n, 15 * n, 1), i
+        assert launches.fast == n and launches.sepconv == 64 * n, i
+        want = eager_packed(eager, images, scales)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), i
+    assert graphs.graph_stats == dict(captures=1, replays=2, eager=1)
+
+
+@pytest.mark.cuda
 def test_detections_a_caller_holds_outlive_the_next_replay(cuda):
     driver = bench_driver(cuda, "kitti_head_d0")
     held = [driver.serve_detections_preprocessed(*graph_inputs(i)) for i in range(4)]

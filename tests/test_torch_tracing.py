@@ -217,7 +217,9 @@ def test_trace_writes_the_spans_on_their_own_row(servers, tmp_path):
 def test_every_span_has_its_metric_in_the_benchmark():
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     names = {m["name"] for m in bench["per_layer"]}
-    assert sorted(profiling.SPANS) == sorted(STAGES)
+    # a single network's stages, and the stack of an ensemble's members
+    # (traced in tests/test_torch_bench_ensemble.py)
+    assert sorted(profiling.SPANS) == sorted(STAGES + ["model.stack"])
     for metric in profiling.SPANS.values():
         assert metric in names
         assert (REPO / "bench_torch" / "metrics" / f"{metric}.py").is_file()

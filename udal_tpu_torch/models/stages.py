@@ -18,8 +18,9 @@ The forwards:
   (``mc_fast.py``; its masks drawn first), then blocks 1-15 at T·B: two
   ``model.backbone`` stages; the BiFPN and heads at T·B.
 - ``mc``: everything at T·B.
-- ``ensemble``: each member's deterministic stages, then a stage without a
-  span stacks the members' outputs on a leading axis.
+- ``ensemble``: each member's deterministic stages, their spans with
+  attribute ``member`` (the member's index), then ``model.stack`` (with
+  attribute ``members``, N) stacks the members' outputs on a leading axis.
 
 The MC forwards' outputs have [T, B, H, W, C] maps, the ensemble's [N, B,
 H, W, C].
@@ -108,8 +109,10 @@ def forward_stages(members: Sequence[EfficientDetNet], kind: str, batch: int,
     model unless ``kind`` is ``ensemble``) with ``samples`` MC samples."""
     if kind != "ensemble":
         return _network(members[0], kind, batch, samples)
-    stages = [s for i, m in enumerate(members) for s in _network(m, kind, batch, 1, str(i))]
-    stages.append(Stage(None, {}, tuple(f"outs{i}" for i in range(len(members))), "outs",
+    stages = [s._replace(attrs=dict(s.attrs, member=i))
+              for i, m in enumerate(members) for s in _network(m, kind, batch, 1, str(i))]
+    stages.append(Stage("model.stack", dict(members=len(members)),
+                        tuple(f"outs{i}" for i in range(len(members))), "outs",
                         lambda *outs: stack_outputs(outs)))
     return stages
 

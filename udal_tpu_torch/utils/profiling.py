@@ -43,8 +43,9 @@ from torch.autograd import profiler as _autograd_profiler
 # each span the program opens, and the benchmark metric that reads it
 # (``bench_torch/metrics/``); ``device.idle_in_dispatch.serve`` reads the
 # markers of the ``model.*`` spans and of ``post``, ``model.graph_replay_share``
-# the ``graph`` attribute of the ``serve`` root (``annotate``) and
-# ``serve.graph_pool_gib`` its ``pool_bytes``
+# the ``graph`` attribute of the ``serve`` root (``annotate``),
+# ``serve.graph_pool_gib`` its ``pool_bytes``, and ``model.host_ms.member``
+# the ensemble members' stage spans, which carry attribute ``member``
 SPANS = {
     "serve": "serve.host_wait_ms",
     "serve.upload": "serve.upload_gbps",
@@ -52,6 +53,7 @@ SPANS = {
     "model.backbone": "model.host_ms.backbone",
     "model.bifpn": "model.host_ms.bifpn",
     "model.heads": "model.host_ms.heads",
+    "model.stack": "model.host_ms.stack",
     "post": "model.host_ms.post",
 }
 MAX_SPANS = 65536
