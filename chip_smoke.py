@@ -50,14 +50,18 @@ exit code:
    - the fused separable conv (``SEPCONV_CASES``), one launch a level:
      in bf16 a tower layer, a BiFPN node and the two predict convs at
      d0's five levels of 1024x512 (the heads at T*B=320, the BiFPN at
-     B=32) and at d7x's six of 1536x768 (the heads at T*B=80, the BiFPN
-     at B=8), against the plain version on the same inputs within 2 bf16
-     ulps plus 1 of the largest value (both round pre(x) and the
-     depthwise to bf16; the f32 sums run in other orders). Each layer over all its
-     levels: the kernel's and the unfused bf16 chain's device time (ATen's
-     depthwise, cuDNN's 1x1, BatchNorm, the activation, the mask; 10
-     calls a CUDA graph), the plain version's (CUDA events), and the bound
-     of the bytes in and out once and the products.
+     B=32; the first kernel) and at d7x's six of 1536x768 (the heads at
+     T*B=80, the BiFPN at B=8; Cin = 384, the resident kernel), against
+     the plain version on the same inputs within 2 bf16 ulps plus 1 of
+     the largest value (both round pre(x) and the depthwise to bf16; the
+     f32 sums run in other orders). Each layer over all its levels: the
+     kernel's and the unfused bf16 chain's device time (ATen's depthwise,
+     cuDNN's 1x1, BatchNorm, the activation, the mask; 10 calls a CUDA
+     graph), at d7x also the first kernel's at its own plans, the plain
+     version's (CUDA events), and the bound of the bytes in and out once
+     and the products. Then a d7x serve at 1536x768 (B=2, replayed):
+     its 152 launches read from a trace of the card, every one resident;
+     d0's 64 a serve (phases 4, 7, 8, 12) none.
 4. the slice at full width: MC-dropout EfficientDet-d0 (1024x512, 8
    classes, loss attenuation, T=10 at rate 0.05, batch 8, bf16, random
    weights from a seed) serves uint8 batches; checks the packed shapes,
@@ -459,13 +463,15 @@ def ptxas_summary(name):
         if m:
             base = re.search(r"(soft_nms_kernel|fused_dw_kernel|fused_dw_rows_kernel|"
                              r"fused_expand_dw_kernel|fused_sepconv_tc_kernel|"
+                             r"fused_sepconv_resident_kernel|"
                              r"expand_dw_tc_kernel_streamed|expand_dw_tc_kernel|sum_partials|"
                              r"packed_pointwise_gmma_kernel|"
                              r"packed_pointwise_kernel|"
                              r"wshift_kernel|add_one_kernel|dw_w3_kernel)(I.*?EE)?", m.group(1))
             args = base.group(2) or ""
             kind = ("bf16" if "bfloat16" in args or base.group(1) in (
-                "expand_dw_tc_kernel", "expand_dw_tc_kernel_streamed", "fused_sepconv_tc_kernel")
+                "expand_dw_tc_kernel", "expand_dw_tc_kernel_streamed", "fused_sepconv_tc_kernel",
+                "fused_sepconv_resident_kernel")
                     else ("f32" if args.startswith("If")
                           or base.group(1) == "fused_expand_dw_kernel" else ""))
             entry = base.group(1) + "<" + ",".join(
@@ -803,9 +809,11 @@ def eager_modules(o, expand, cin, ce, k, s, dev):
 
 
 def check_fused_sepconv(dev, smi):
-    """Phase 3, the fused separable conv at ``SEPCONV_CASES``. Returns the
-    largest error and, for the first case (d0's tower layer), the kernel's,
-    the plain version's and the unfused chain's ms and the bound."""
+    """Phase 3, the fused separable conv at ``SEPCONV_CASES`` (at Cin > 128
+    the resident kernel, timed beside the first kernel at its own plans),
+    then d7x's serve launches. Returns the largest error and, for the
+    first case (d0's tower layer), the kernel's, the plain version's and
+    the unfused chain's ms and the bound."""
     g = torch.Generator(device=dev).manual_seed(17)
     worst, first = 0.0, None
     dtype = torch.bfloat16
@@ -822,14 +830,18 @@ def check_fused_sepconv(dev, smi):
                     if masked else None)
             ops.append((x, taps, wt, scale, bias, mask, pre, post))
         err = 0.0
+        resident = cin > fused_sepconv.RESIDENT_FROM
         for args in ops:
-            before = fused_sepconv.launches
+            before, before_resident = fused_sepconv.launches, fused_sepconv.resident_launches
             got = fused_sepconv.fused_sepconv(*args)
             want = fused_sepconv.fused_sepconv_plain(*args)
             torch.cuda.synchronize()
-            if fused_sepconv.launches != before + 1:
+            if (fused_sepconv.launches - before,
+                    fused_sepconv.resident_launches - before_resident) != (1, int(resident)):
                 raise AssertionError(f"fused_sepconv {what}: {fused_sepconv.launches - before} "
-                                     f"launches a level")
+                                     f"launches a level, "
+                                     f"{fused_sepconv.resident_launches - before_resident} "
+                                     f"resident; want 1, {int(resident)}")
             excess, _ = bf16_excess(got, want, 2, 1)
             if excess > 0:
                 raise AssertionError(f"fused_sepconv {what} at {tuple(got.shape)}: beyond 2 + 1 "
@@ -864,24 +876,62 @@ def check_fused_sepconv(dev, smi):
             for args in ops:
                 fused_sepconv.fused_sepconv_plain(*args)
 
+        def first_kernel():
+            for args in ops:
+                x = args[0]
+                fused_sepconv._launch(*args, fused_sepconv.tc_plan(
+                    x.shape[0], cin, cout, x.shape[2], x.shape[3]))
+
         t_kernel, t_chain = graph_median_ms(kernel), graph_median_ms(chain)
         t_plain = cuda_median_ms(plain, runs=5, warmup=1)
+        first_ms = (f"; the first kernel at its plans {graph_median_ms(first_kernel):.4f} ms"
+                    if resident else "")
         pixels = sum(n * h * w for h, w in levels)
         nbytes = pixels * (cin + cout) * 2 + len(levels) * (
             (cin * 9 + cout * cin) * 2 + 8 * cout + (4 * n * cout if masked else 0))
         layer_bound = bound(nbytes, 2.0 * pixels * cin * cout, pixels * (18.0 * cin + 8.0 * cout))
+        plans = [fused_sepconv.plan(n, cin, cout, h, w) for h, w in levels]
         phase(3, f"fused_sepconv bf16 {what}: N={n} {cin}->{cout}, "
                  f"levels {'/'.join(f'{h}x{w}' for h, w in levels)}, pre {pre}, post {post}, "
                  f"mask {'on' if masked else 'off'}: max err {err:.3g}; a layer over its "
-                 f"levels: kernel {t_kernel:.4f} ms, unfused chain {t_chain:.4f} ms (device "
+                 f"levels: {'resident' if resident else 'first'} kernel {t_kernel:.4f} ms"
+                 f"{first_ms}, unfused chain {t_chain:.4f} ms (device "
                  f"time, 10 calls a CUDA graph), plain (f32 inside) {t_plain:.4f} ms; bound "
                  f"{layer_bound[0]:.4f} ms ({layer_bound[1]}), the kernel at "
-                 f"{layer_bound[0] / t_kernel:.0%} of it; {smi}")
+                 f"{layer_bound[0] / t_kernel:.0%} of it; plans {plans}; {smi}")
         if first is None:
             first = (t_kernel, t_plain, t_chain, layer_bound)
         del ops, conv, bn
         torch.cuda.empty_cache()
+    d7x_serve_launches(dev, smi)
     return worst, first
+
+
+def d7x_serve_launches(dev, smi):
+    """EfficientDet-d7x with the benchmark's ``bdd_head_d7x`` overrides at
+    1536x768, batch 2: a replayed serve's fused separable convs, read from
+    a trace of the card, are 152 (``sepconv_per_forward``), every one on
+    the resident kernel."""
+    LAUNCHES.stop()         # one trace at a time
+    spec = json.loads((Path(__file__).resolve().parent / "bench_torch" / "configs"
+                       / "bdd_head_d7x.json").read_text())
+    driver = ServingDriver.create(spec["model_name"], seed=1, device=dev,
+                                  overrides=spec["overrides"])
+    images = torch.randn((2, 768, 1536, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    scales = torch.ones(2, device=dev)
+    for _ in range(3):
+        driver.serve_preprocessed(images, scales)
+    with profiling.KernelLaunches() as launches:
+        driver.serve_preprocessed(images, scales)
+    want = sepconv_per_forward(driver.config)
+    if (launches.sepconv, launches.sepconv_resident) != (want, want):
+        raise AssertionError(f"d7x serve: fused_sepconv {launches.sepconv} launches, "
+                             f"{launches.sepconv_resident} resident; want {want}, all resident")
+    phase(3, f"d7x 1536x768 B=2 replayed serve ({driver.graph_stats}): fused_sepconv "
+             f"{launches.sepconv} launches, {launches.sepconv_resident} of them resident, read "
+             f"from a trace of the card; {smi}")
+    del driver
+    torch.cuda.empty_cache()
 
 
 # the port's kernels launched on the card between ``reset_counts`` and
@@ -895,6 +945,7 @@ def reset_counts(trace=True):
     counting the port's kernels in a trace of the card (which times traced
     work from here to ``counts``)."""
     cuda_nms.launches = fused_dw.launches = fused_mbconv.launches = fused_sepconv.launches = 0
+    fused_sepconv.resident_launches = 0
     fused_dw.path_launches.update(dict.fromkeys(fused_dw.path_launches, 0))
     packed.launches.update(dict.fromkeys(packed.launches, 0))
     LAUNCHES.stop()
@@ -916,6 +967,11 @@ def fast_launches():
 def sepconv_launches():
     """The fused separable conv's launches of the same trace."""
     return LAUNCHES.stop().sepconv
+
+
+def resident_launches():
+    """The launches of its resident kernel (Cin > 128) in the same trace."""
+    return LAUNCHES.stop().sepconv_resident
 
 
 def sepconv_per_forward(cfg):
@@ -1183,10 +1239,10 @@ def traced_calls(fn):
 def assert_launches(what, launches, per_call, sepconv):
     """(fused_dw, fused_expand_dw, soft_nms) launches of SERVE_CALLS calls,
     every fused_dw launch on its fast path, and ``sepconv`` fused
-    separable convs a call."""
+    separable convs a call, none resident (d0: Cin = 64)."""
     want = tuple(SERVE_CALLS * n for n in per_call)
     if launches != want or fast_launches() != want[0] or \
-            sepconv_launches() != SERVE_CALLS * sepconv:
+            sepconv_launches() != SERVE_CALLS * sepconv or resident_launches() != 0:
         raise AssertionError(f"{what}: (fused_dw, fused_expand_dw, soft_nms) launches "
                              f"{launches} in {SERVE_CALLS} calls, want {per_call} a call; "
                              f"fused_dw fast path {fast_launches()}; fused_sepconv "
@@ -2932,9 +2988,11 @@ def main():
         raise AssertionError(f"fused_dw fast path {fast_launches()} in {SERVE_CALLS} serve "
                              f"calls; the MC prefix must take the fast path")
     serve_sepconv = sepconv_launches()
-    if serve_sepconv != SERVE_CALLS * sepconv_per_forward(server.config):
-        raise AssertionError(f"fused_sepconv {serve_sepconv} in {SERVE_CALLS} serve calls; want "
-                             f"{sepconv_per_forward(server.config)} a call")
+    if serve_sepconv != SERVE_CALLS * sepconv_per_forward(server.config) or \
+            resident_launches() != 0:
+        raise AssertionError(f"fused_sepconv {serve_sepconv} in {SERVE_CALLS} serve calls, "
+                             f"{resident_launches()} resident; want "
+                             f"{sepconv_per_forward(server.config)} a call, none resident")
     shapes = [tuple(t.shape) for t in out]
     if shapes != [(BATCH, K, 12), (BATCH, K), (BATCH, K, 9), (BATCH,)]:
         raise AssertionError(f"packed shapes {shapes}")

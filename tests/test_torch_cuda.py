@@ -1113,6 +1113,7 @@ def test_replayed_serves_equal_eager_ones_bit_for_bit(cuda, forward):
         assert launches.counts == FORWARDS[forward][2], i
         assert launches.fast == launches.counts[0], i
         assert launches.sepconv == 64 * launches.counts[0], i
+        assert launches.sepconv_resident == 0, i
         want = eager_packed(eager, *graph_inputs(i))
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w), i
@@ -1152,6 +1153,7 @@ def test_the_five_member_bdd_ensemble_replays_its_eager_serve_bit_for_bit(cuda):
             got = graphs.serve_preprocessed(images, scales)
         assert launches.counts == (n, 15 * n, 1), i
         assert launches.fast == n and launches.sepconv == 64 * n, i
+        assert launches.sepconv_resident == 0, i
         want = eager_packed(eager, images, scales)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w), i
@@ -1320,7 +1322,8 @@ def test_d7x_serve_launches_4_51_1_from_a_trace(cuda):
     head-only MC, T = 10), batch 2: a replayed serve launches B2 four
     times (its fast path), B3 51 times, soft-NMS once and the fused
     separable conv 152 times (80 BiFPN nodes, and 5 tower layers and a
-    predict conv a level in each head), read from a trace of the card."""
+    predict conv a level in each head), every one on its resident kernel
+    (Cin = 384), read from a trace of the card."""
     import json
 
     from udal_tpu_torch.apps.serving import ServingDriver
@@ -1337,7 +1340,7 @@ def test_d7x_serve_launches_4_51_1_from_a_trace(cuda):
         driver.serve_preprocessed(images, scales)
     assert driver.graph_stats == dict(captures=1, replays=2, eager=1)
     assert launches.counts == (4, 51, 1) and launches.fast == 4
-    assert launches.sepconv == 152
+    assert launches.sepconv == 152 and launches.sepconv_resident == 152
 
 
 def two_bytes_off(t):

@@ -343,29 +343,99 @@ CARD_CASES = {
     "d7x_box_predict": ("predict", 80, 384, 72, [D7X_LEVELS[0], D7X_LEVELS[-1]]),
     "odd_widths": ("tower", 3, 40, 100, [(5, 7), (9, 21), (1, 1), (2, 300)]),
     "wide_outputs": ("node", 2, 24, 200, [(7, 12), (3, 520)]),
+    "d4_odd_levels": ("tower", 3, 224, 224, [(5, 7), (9, 21), (1, 1), (2, 300)]),
+    "ragged_second_slice": ("node", 2, 384, 200, [(7, 12), (3, 520)]),
+    "five_slices": ("predict", 4, 160, 810, [(10, 40), (3, 6)]),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CARD_CASES))
 def test_kernel_matches_plain_on_the_card(no_tf32, case):
-    """Each level of a case: one launch, the plain version's values. Both
-    round pre(x) and the depthwise to bf16, where f32 sums in another
-    order (and the kernel's one-MUFU swish) can round a value apart, so 2
-    ulps of each value plus one of the largest."""
+    """Each level of a case: one launch, of the resident kernel exactly
+    where Cin > 128 (every d7x case, none of d0's), the plain version's
+    values. Both round pre(x) and the depthwise to bf16, where f32 sums in
+    another order (and the kernel's one-MUFU swish) can round a value
+    apart, so 2 ulps of each value plus one of the largest."""
     role, n, cin, cout, levels = CARD_CASES[case]
+    resident = int(cin > fs.RESIDENT_FROM)
+    assert resident == case.startswith(("d7x", "d4", "ragged", "five"))
     for i, (h, w) in enumerate(levels):
         x, conv, bn, scale, bias, mask, pre, post = role_operands(
             role, n, cin, cout, h, w, 10 * i + cin, no_tf32, torch.bfloat16)
         taps, wt = conv.depthwise.weight.detach(), conv.pointwise.weight.detach()
         want = fs.fused_sepconv_plain(x, taps, wt, scale, bias, mask, pre, post)
-        before = fs.launches
+        before, before_resident = fs.launches, fs.resident_launches
         got = fs.fused_sepconv(x, taps, wt, scale, bias, mask, pre, post)
         torch.cuda.synchronize()
         assert fs.launches == before + 1
+        assert fs.resident_launches == before_resident + resident
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         assert_bf16_close(got, want, 2, 1)
         del x, want, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role,cin,cout,h,w", [("tower", 384, 384, 3, 6),
+                                               ("tower", 384, 384, 24, 48),
+                                               ("predict", 384, 90, 12, 24)])
+def test_resident_kernel_at_any_grid(no_tf32, role, cin, cout, h, w):
+    """The resident kernel at grids the planner would not take: more groups
+    than bands (blocks that get no band and leave) and one or two groups
+    (a block walks many times more bands than the grid), each the plain
+    version's values and the same bits as at the planned grid."""
+    x, conv, bn, scale, bias, mask, pre, post = role_operands(role, 16, cin, cout, h, w, 3,
+                                                              no_tf32, torch.bfloat16)
+    taps, wt = conv.depthwise.weight.detach(), conv.pointwise.weight.detach()
+    want = fs.fused_sepconv_plain(x, taps, wt, scale, bias, mask, pre, post)
+    planned = fs.fused_sepconv(x, taps, wt, scale, bias, mask, pre, post)
+    p = fs.plan(16, cin, cout, h, w)
+    bands = -(-(16 * h) // p.th) * -(-w // p.tw)
+    for groups in (bands + 5, 1, 2):
+        got = fs._launch(x, taps, wt, scale, bias, mask, pre, post,
+                         p._replace(grid=groups * p.slices))
+        torch.cuda.synchronize()
+        assert_bf16_close(got, want, 2, 1)
+        assert torch.equal(got, planned), groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "relu6", "hswish", "mish"])
+def test_resident_kernel_takes_every_activation(no_tf32, act):
+    """pre and post other than swish and the identity, each a constant of
+    its own copy of the resident kernel's code (mish from the hardware exp,
+    log and tanh), at a pair's bands of 2 x 32 and at odd levels: the plain
+    version's values within 2 + 1 bf16 ulps."""
+    for h, w in [(12, 32), (5, 7)]:
+        x, conv, bn, scale, bias, mask, _, _ = role_operands("tower", 4, 384, 384, h, w, 8,
+                                                             no_tf32, torch.bfloat16)
+        taps, wt = conv.depthwise.weight.detach(), conv.pointwise.weight.detach()
+        want = fs.fused_sepconv_plain(x, taps, wt, scale, bias, mask, act, act)
+        before = fs.resident_launches
+        got = fs.fused_sepconv(x, taps, wt, scale, bias, mask, act, act)
+        torch.cuda.synchronize()
+        assert fs.resident_launches == before + 1
+        assert_bf16_close(got, want, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_resident_kernel_takes_a_misaligned_view(cuda, operand):
+    """x (or W) 2 bytes off a 16-byte boundary at d7x's width: plain loads
+    of x (or of W, into the same resident rows), the same values."""
+    x, conv, bn, scale, bias, mask, pre, post = role_operands("node", 2, 384, 384, 12, 24, 5,
+                                                              cuda, torch.bfloat16)
+    taps, wt = conv.depthwise.weight.detach(), conv.pointwise.weight.detach()
+    want = fs.fused_sepconv_plain(x, taps, wt, scale, bias, mask, pre, post)
+    t = x if operand == "x" else wt
+    base = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    args = (view, taps, wt) if operand == "x" else (x, taps, view)
+    before = fs.resident_launches
+    assert_bf16_close(fs.fused_sepconv(*args, scale, bias, mask, pre, post), want, 2, 1)
+    assert fs.resident_launches == before + 1
 
 
 @pytest.mark.cuda
@@ -385,10 +455,15 @@ def test_kernel_takes_a_misaligned_view(cuda):
 @pytest.mark.cuda
 def test_planner_counts_the_kernels_shared_memory(cuda):
     """The band planner's shared-memory model equals the source's count at
-    every plan of the cases (each of the three tensor-core configurations)."""
+    every plan of the cases (each of the three tensor-core configurations,
+    and the resident kernel's, pairs and single slices)."""
     for role, n, cin, cout, levels in CARD_CASES.values():
         for h, w in levels:
             p = fs.plan(n, cin, cout, h, w)
+            if isinstance(p, fs.ResidentPlan):
+                assert (fs.kernel_resident_smem_bytes(cin, p.mb, p.pair, p.th, p.tw)
+                        == fs.resident_smem_bytes(cin, p.mb, p.pair, p.th, p.tw)), (p, cin)
+                continue
             assert (fs.kernel_smem_bytes(p.cfg, cin, p.th, p.tw)
                     == fs.smem_bytes(p.cfg, cin, p.th, p.tw)), (p, cin)
 

@@ -10,8 +10,10 @@ CPU, and numpy/torch emulations of what the kernels do with them.
   window plus the column-segment stencil against
   ``fused_depthwise_plain`` with TF SAME borders;
 - the fused separable conv (``csrc/fused_sepconv.cu``): the band planner's
-  plans, and the staged bands of global rows with their depthwise pairs,
-  product and scatter back to the images against ``fused_sepconv_plain``.
+  plans (d0's pinned; Cin > 128 to the resident kernel, whose walk of
+  groups over bands covers each band and slice once), and the staged bands
+  of global rows with their depthwise pairs, product and scatter back to
+  the images against ``fused_sepconv_plain``.
 
 The kernels themselves are held against the plain versions on a card in
 ``tests/test_torch_cuda.py``.
@@ -321,20 +323,123 @@ SEP_SHAPES = ([(n, 64, h, w) for n in (8, 80, 320)
 
 @pytest.mark.parametrize("cout", [63, 64, 72, 90, 100, 200, 384])
 def test_sepconv_plans_cover_the_tensor_and_fit(cout):
-    """Every plan: the narrowest configuration whose block covers Cout
-    (slices of the widest beyond), a band's pairs within the block's
-    pixels, whole rows or bands of a multiple of 8 columns, and a block
-    within the shared-memory budget."""
+    """Every plan: whole rows or bands of a multiple of 8 columns, a band's
+    pairs within the block's pixels. Cin <= 128: a ``Plan`` of the
+    narrowest configuration whose block covers Cout (slices of the widest
+    beyond) within the shared-memory budget. Cin > 128: a ``ResidentPlan``
+    of the fewest slices of at most 192 outputs (multiples of 48) that
+    cover Cout, a cluster pair exactly where there are two, within the 227
+    KB a block may have, and a grid of whole groups no larger than the
+    card's SMs or the bands' groups."""
     for n, cin, h, w in SEP_SHAPES:
         p = fused_sepconv.plan(n, cin, cout, h, w)
+        assert 1 <= p.th <= n * h
+        assert p.tw == w or (p.tw % 8 == 0 and p.tw < w)
+        if cin > fused_sepconv.RESIDENT_FROM:
+            assert isinstance(p, fused_sepconv.ResidentPlan)
+            assert p.th * fused_sepconv.pair_width(p.tw) <= fused_sepconv.R_PIXELS
+            assert p.mb % 48 == 0 and 48 <= p.mb <= 192
+            assert p.slices == -(-cout // 192) and (p.slices - 1) * p.mb < cout <= p.slices * p.mb
+            assert p.pair == (p.slices == 2)
+            assert (fused_sepconv.resident_smem_bytes(cin, p.mb, p.pair, p.th, p.tw)
+                    <= 227 * 1024)
+            bands = -(-(n * h) // p.th) * -(-w // p.tw)
+            assert p.grid % p.slices == 0
+            assert p.grid // p.slices == min(bands, fused_sepconv.sm_count() // p.slices)
+            continue
+        assert isinstance(p, fused_sepconv.Plan)
         mb, nb = fused_sepconv.TC_CONFIGS[p.cfg]
         narrower = fused_sepconv.TC_CONFIGS[:p.cfg]
         assert cout <= mb or p.cfg == len(fused_sepconv.TC_CONFIGS) - 1
         assert all(cout > m for m, _ in narrower)
         assert (p.slices - 1) * mb < cout <= p.slices * mb
-        assert 1 <= p.th <= n * h and p.th * fused_sepconv.pair_width(p.tw) <= nb
-        assert p.tw == w or (p.tw % 8 == 0 and p.tw < w)
+        assert p.th * fused_sepconv.pair_width(p.tw) <= nb
         assert fused_sepconv.smem_bytes(p.cfg, cin, p.th, p.tw) <= fused_sepconv.SMEM_BUDGET
+
+
+# d0's plans at 1024x512, level by level (P3..P7), as the first kernel's
+# planner made them before the resident kernel came: (cfg, th, tw, slices)
+D0_PLANS = {64: [(0, 2, 128, 1), (0, 4, 64, 1), (0, 8, 32, 1), (0, 16, 16, 1), (0, 25, 8, 1)],
+            72: [(1, 1, 128, 1), (1, 2, 64, 1), (1, 4, 32, 1), (1, 8, 16, 1), (1, 16, 8, 1)]}
+
+
+@pytest.mark.parametrize("n", [8, 32, 80, 320])
+@pytest.mark.parametrize("cout", [63, 64, 72, 90])
+def test_sepconv_d0_plans_stay_as_they_were(n, cout):
+    """Every d0 launch (Cin = 64: the BiFPN nodes at B = 8 / 32 / 80, the
+    towers at T·B = 80 / 320, the predict convs at Cout 63 / 72 / 90) keeps
+    the first kernel and its plan."""
+    levels = [(64, 128), (32, 64), (16, 32), (8, 16), (4, 8)]
+    want = D0_PLANS[64 if cout <= 64 else 72]
+    got = [fused_sepconv.plan(n, 64, cout, h, w) for h, w in levels]
+    assert all(type(p) is fused_sepconv.Plan for p in got)
+    assert [tuple(p) for p in got] == want
+
+
+# (n, cin, cout, h, w): d7x's levels for the towers, nodes and predicts,
+# d4's width at odd levels, a ragged second slice, and Cout beyond a pair
+RESIDENT_SHAPES = ([(n, 384, cout, h, w) for n, cout in ((80, 384), (8, 384), (80, 90), (80, 72))
+                    for h, w in ((96, 192), (48, 96), (24, 48), (12, 24), (6, 12), (3, 6))]
+                   + [(3, 224, 100, h, w) for h, w in ((5, 7), (9, 21), (1, 1), (2, 300))]
+                   + [(2, 384, 200, 7, 12), (2, 384, 200, 3, 520), (4, 160, 810, 10, 40)])
+
+
+def resident_walk(p, bands):
+    """The source's walk: block b keeps slice b % slices, and its group
+    b // slices takes bands group, group + groups, … (groups = grid //
+    slices). Returns each block's (band, slice) in order."""
+    groups = p.grid // p.slices
+    return [[(band, b % p.slices) for band in range(b // p.slices, bands, groups)]
+            for b in range(p.grid)]
+
+
+@pytest.mark.parametrize("shape", RESIDENT_SHAPES)
+def test_resident_walk_covers_each_band_and_slice_once(shape):
+    """At the plan's grid, at a grid of one group, and at grids larger than
+    the bands' groups (blocks with no band) or of many times fewer groups:
+    every (band, slice) once, each block one slice of W from first band to
+    last, and the blocks of a group (a cluster for a pair) on the same
+    bands in the same order."""
+    n, cin, cout, h, w = shape
+    p = fused_sepconv.plan(n, cin, cout, h, w)
+    bands = -(-(n * h) // p.th) * -(-w // p.tw)
+    for groups in {p.grid // p.slices, 1, bands + 3, max(1, bands // 7)}:
+        q = p._replace(grid=groups * p.slices)
+        walk = resident_walk(q, bands)
+        done = sorted(item for block in walk for item in block)
+        assert done == [(b, s) for b in range(bands) for s in range(p.slices)]
+        for b, block in enumerate(walk):
+            assert {s for _, s in block} <= {b % p.slices}
+            mates = walk[b - b % p.slices:b - b % p.slices + p.slices]
+            assert all([band for band, _ in m] == [band for band, _ in block] for m in mates)
+        assert sum(not block for block in walk) == p.slices * max(0, groups - bands)
+
+
+@pytest.mark.parametrize("pair", [True, False])
+def test_resident_copies_fit_the_producers_slots(pair):
+    """Every band the resident kernel stages with 16-byte copies (its
+    columns a multiple of 8, at most 64 pixels) needs at most 4 copies a
+    producer thread a chunk (256 threads), the kernel's slots
+    (``resident_copies`` in the source: channels x staged rows x 16-byte
+    groups); the launch refuses more."""
+    ch = 16 if pair else 32
+    for tw in range(8, fused_sepconv.R_PIXELS + 1, 8):
+        for th in range(1, fused_sepconv.R_PIXELS // tw + 1):
+            assert (th + 2) * (fused_sepconv.staged_width(tw) // 8) * ch <= 4 * 256, (th, tw)
+
+
+def test_resident_plans_fit_the_card_and_split_d7x_in_a_pair():
+    """d7x's towers and nodes (384 -> 384) take a cluster pair of 192-wide
+    slices, its predict convs one slice of 96, bands of at most 64 pixels
+    (2 rows by 32 columns at P3 and P4, the kernel's 2 x 2 depthwise); a
+    grid of at most one block an SM (132 without a card)."""
+    for n, cin, cout, h, w in RESIDENT_SHAPES[:24]:
+        p = fused_sepconv.plan(n, cin, cout, h, w)
+        assert (p.mb, p.slices) == ((192, 2) if cout == 384 else (96, 1))
+        assert p.grid <= fused_sepconv.sm_count()
+        assert p.th * fused_sepconv.pair_width(p.tw) <= 64
+        if h in (96, 48):
+            assert p[:2] == (2, 32)
 
 
 def emulate_sepconv(x, taps, w, scale, bias, mask, p):
@@ -382,11 +487,13 @@ def emulate_sepconv(x, taps, w, scale, bias, mask, p):
 
 
 @pytest.mark.parametrize("n,cin,cout,h,w", [
-    (3, 8, 64, 5, 7), (2, 8, 100, 3, 20), (2, 16, 200, 2, 300), (3, 8, 72, 4, 9), (2, 8, 64, 1, 1)])
+    (3, 8, 64, 5, 7), (2, 8, 100, 3, 20), (2, 16, 200, 2, 300), (3, 8, 72, 4, 9), (2, 8, 64, 1, 1),
+    (2, 136, 100, 3, 20), (3, 136, 200, 5, 7)])
 def test_sepconv_emulation_equals_the_plain_version(n, cin, cout, h, w):
     """On the plan of a shape (bands spanning images, two column bands, an
-    odd width, single pixels), the emulated kernel's values are the plain
-    version's (f32, up to the order of the sums)."""
+    odd width, single pixels; the resident kernel's bands at Cin > 128),
+    the emulated kernel's values are the plain version's (f32, up to the
+    order of the sums)."""
     g = torch.Generator().manual_seed(n * w + cout)
     x = torch.randn((n, cin, h, w), generator=g)
     taps = torch.randn((cin, 1, 3, 3), generator=g) / 3

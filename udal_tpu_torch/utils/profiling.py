@@ -61,12 +61,12 @@ MARKER = "udal:"
 # the port's kernels by the names a trace of the card gives them, for each
 # wrapper's launch counter: the fused depthwise (fast path, general path),
 # the fused expand + depthwise (bf16 resident and streamed, f32), soft-NMS,
-# the fused separable conv
+# the fused separable conv (Cin <= 128, and the resident kernel beyond)
 KERNELS = {"fused_dw": ("fused_dw_rows_kernel", "fused_dw_kernel"),
            "fused_expand_dw": ("expand_dw_tc_kernel", "expand_dw_tc_kernel_streamed",
                                "fused_expand_dw_kernel"),
            "soft_nms": ("soft_nms_kernel",),
-           "fused_sepconv": ("fused_sepconv_tc_kernel",)}
+           "fused_sepconv": ("fused_sepconv_tc_kernel", "fused_sepconv_resident_kernel")}
 
 
 @dataclasses.dataclass(eq=False)
@@ -226,7 +226,8 @@ class KernelLaunches:
     ``stop()`` (or in a ``with`` block), read from a ``torch.profiler``
     trace of CUDA activity: ``counts`` is (fused_dw, fused_expand_dw,
     soft_nms) as ``KERNELS`` names them, ``fast`` the fused depthwise's
-    fast-path launches, ``sepconv`` the fused separable conv's launches.
+    fast-path launches, ``sepconv`` the fused separable conv's launches
+    (either kernel), ``sepconv_resident`` those of its resident kernel.
     A replayed CUDA graph launches its kernels without
     their wrappers, whose counters see the eager and captured calls alone;
     the trace sees every launch."""
@@ -238,11 +239,12 @@ class KernelLaunches:
 
     def __init__(self):
         self.counts, self.fast, self.sepconv, self._prof = (0, 0, 0), 0, 0, None
+        self.sepconv_resident = 0
 
     def start(self) -> "KernelLaunches":
         """Start a trace (ending one that runs); without a card, count 0."""
         self.stop()
-        self.counts, self.fast, self.sepconv = (0, 0, 0), 0, 0
+        self.counts, self.fast, self.sepconv, self.sepconv_resident = (0, 0, 0), 0, 0, 0
         if torch.cuda.is_available():
             self._prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -268,6 +270,7 @@ class KernelLaunches:
         self.counts = tuple(by_wrapper[w] for w in ("fused_dw", "fused_expand_dw", "soft_nms"))
         self.fast = launched(KERNELS["fused_dw"][0])
         self.sepconv = by_wrapper["fused_sepconv"]
+        self.sepconv_resident = launched(KERNELS["fused_sepconv"][1])
         return self
 
     __enter__ = start
